@@ -1,16 +1,290 @@
-"""The replication economy's engine-facing constants.
+"""The replication economy: file valuation + proactive replica placement.
 
-The economy itself (``repro.core.economy``: the value models and the
-``ReplicationOptimizer``, scored by the ``value_score`` kernel) is not
-ported yet; the simulator raises when a run would arm it. These constants
-are what the simulator and the scenario registry already need.
+The counterpart of ``repro.core.economy``. The paper's strategies are
+*reactive* — a replica is created only as a side effect of a job fetch.
+Here a :class:`ReplicationOptimizer` wakes up as a DES event (``ECON`` in
+:class:`repro_torch.core.simulator.GridSimulator`), scores the full
+``(sites, files)`` value matrix from the observed
+:class:`repro_torch.core.access.AccessHistory`, and *auctions* the
+top-valued files to sites with space — evicting only replicas whose
+retention value is lower than what the incoming file brings (never a
+net-negative trade).
+
+Valuation is pluggable (:data:`VALUE_MODELS`):
+
+``economic``
+    OptorSim-style pricing: ``value[s, f] = predicted future accesses x
+    transfer seconds per access`` — demand times ``size / bestbw`` where
+    ``bestbw`` is the best point bandwidth from any *other* fetchable
+    holder (:meth:`repro_torch.core.network.NetworkEngine.
+    point_bandwidth_matrix`).
+
+``popularity``
+    Pure decayed-popularity prediction: ``value[s, f] = predicted future
+    accesses`` (region-pooled), masked to pairs with a live source.
+
+Both are scored by the :mod:`repro_torch.kernels.value_score` op on the
+network engine's device: the CUDA kernel on the card, its plain PyTorch
+version on the CPU. The ``econ=`` flag keeps the reference's values;
+``numpy`` and ``pallas`` are that one route, and ``pallas-interpret``
+raises ``NotImplementedError``, as ``net="*-interpret"`` does. The demand
+and the holder mask go up in one copy each per round and the value matrix
+comes back in one; the auction itself is host code, as in the reference.
 """
 
 from __future__ import annotations
 
-#: Values the ``econ=`` engine flag accepts (the reference's).
+import dataclasses
+
+import numpy as np
+import torch
+
+from ..kernels.value_score import value_score
+from .access import AccessHistory
+from .catalog import ReplicaCatalog
+from .network import NetworkEngine
+from .replica import FetchPlan, StorageState
+from .topology import GridTopology
+
+#: Values the ``econ=`` engine flag accepts, the reference's: ``numpy``
+#: and ``pallas`` both score with the ``value_score`` op on the engine's
+#: device; ``pallas-interpret`` (the Pallas interpreter) raises
+#: ``NotImplementedError``.
 ECON_BACKENDS = ("numpy", "pallas", "pallas-interpret")
 
 #: Default period (seconds of sim time) between optimizer rounds when a
-#: strategy enables the economy.
+#: strategy enables the economy — 15 simulated minutes (~15 paper-baseline
+#: job arrivals). Tuned on ``hotset_drift`` at 2k jobs: 900 s reacts to a
+#: hot-set shift fast enough to matter while keeping prefetch WAN traffic
+#: a small fraction of job traffic; 1800/3600 s were consistently worse
+#: for the predictive strategy and no better for the economic one.
 DEFAULT_INTERVAL_S = 900.0
+
+
+class FileValue:
+    """Base valuation model: turns an :class:`AccessHistory` into the
+    demand matrix the scorer consumes, and names the scoring mode."""
+
+    name = "base"
+    mode = "cost"            # kernels.value_score mode
+    #: replicate only when the predicted value clears this floor (units
+    #: follow the mode: seconds saved for "cost", accesses for "plain")
+    min_value = 0.0
+
+    def __init__(self, access: AccessHistory, topology: GridTopology, *,
+                 region_weight: float = 0.5) -> None:
+        self.access = access
+        self.topology = topology
+        self.region_weight = region_weight
+
+    def demand(self, now: float) -> np.ndarray:
+        """Predicted future accesses per (site, file): the site's own
+        decayed count plus ``region_weight`` times its region-mates' —
+        a replica at ``s`` also serves the rest of the region over the
+        LAN, so pooled demand is part of the price."""
+        local = self.access.snapshot(now)
+        if self.region_weight == 0.0:
+            return local
+        region_rows = np.empty_like(local)
+        for region in self.topology.regions:
+            region_rows[region.site_ids] = local[region.site_ids].sum(axis=0)
+        return local + self.region_weight * (region_rows - local)
+
+
+class EconomicValue(FileValue):
+    """OptorSim-style economic valuation (``value = demand x transfer
+    seconds``, see module docstring)."""
+
+    name = "economic"
+    mode = "cost"
+    min_value = 60.0         # don't trade for < 1 predicted minute saved
+
+
+class PopularityValue(FileValue):
+    """Decayed-popularity prediction (``value = pooled demand``)."""
+
+    name = "popularity"
+    mode = "plain"
+    min_value = 0.75         # < one predicted access isn't worth staging
+
+
+#: Valuation-model registry, keyed by each model's ``name``.
+VALUE_MODELS: dict[str, type[FileValue]] = {
+    c.name: c for c in (EconomicValue, PopularityValue)
+}
+
+
+@dataclasses.dataclass
+class ProposedReplication:
+    """One auction outcome: stage ``lfn`` at ``dst`` from ``src``,
+    evicting ``evictions`` (all strictly lower-valued than the incoming
+    file). ``value``/``evicted_value`` are kept for introspection."""
+
+    lfn: str
+    src: int
+    dst: int
+    evictions: list[str]
+    value: float
+    evicted_value: float
+
+    def to_plan(self, topology: GridTopology) -> FetchPlan:
+        return FetchPlan(self.lfn, self.src, self.dst, store=True,
+                         evictions=list(self.evictions),
+                         inter_region=topology.is_inter_region(self.src,
+                                                               self.dst))
+
+
+class ReplicationOptimizer:
+    """Periodic proactive-replication auction (see module docstring).
+
+    ``step(now)`` returns the round's winning :class:`ProposedReplication`
+    list; the simulator executes them as ordinary store transfers (they
+    occupy links and contend with job traffic — the cost side of the
+    economy is physically real). Deterministic: value ties resolve by
+    (site, file) index, sources by (bandwidth, lowest id).
+    """
+
+    def __init__(self, catalog: ReplicaCatalog, topology: GridTopology,
+                 storage: StorageState, access: AccessHistory,
+                 network: NetworkEngine, *, model: str = "economic",
+                 backend: str = "numpy",
+                 max_transfers: int = 8, per_site: int = 1,
+                 region_weight: float = 0.5) -> None:
+        if backend not in ECON_BACKENDS:
+            raise ValueError(f"unknown econ backend {backend!r} "
+                             f"(want one of {ECON_BACKENDS})")
+        if backend == "pallas-interpret":
+            raise NotImplementedError(
+                "econ='pallas-interpret' runs a Pallas kernel under the "
+                "Pallas interpreter; the port has no interpreter route — "
+                "use econ='numpy'")
+        if model not in VALUE_MODELS:
+            raise ValueError(f"unknown value model {model!r} "
+                             f"(want one of {sorted(VALUE_MODELS)})")
+        self.catalog = catalog
+        self.topology = topology
+        self.storage = storage
+        self.access = access
+        self.network = network
+        self.model = VALUE_MODELS[model](access, topology,
+                                         region_weight=region_weight)
+        self.backend = backend
+        self.max_transfers = max_transfers
+        self.per_site = per_site
+        self.rounds = 0
+        self.proposed = 0
+
+    # file axis: always the access history's (synced to the catalog)
+    @property
+    def lfns(self) -> list[str]:
+        return self.access.lfns
+
+    @property
+    def sizes(self) -> np.ndarray:
+        return self.access.sizes
+
+    # -- matrix assembly ---------------------------------------------------
+    def _holder_masks(self) -> tuple[np.ndarray, np.ndarray]:
+        """(held, fetchable): bool (sites, files). ``held`` is every
+        holder; ``fetchable`` keeps online holders plus durable masters
+        (the same rule job fetches use)."""
+        n_sites = self.topology.n_sites
+        held = np.zeros((n_sites, len(self.lfns)), bool)
+        for j, lfn in enumerate(self.lfns):
+            for h in sorted(self.catalog.holders(lfn)):
+                held[h, j] = True
+        online = np.array([s.online for s in self.topology.sites], bool)
+        fetchable = held & online[:, None]
+        masters = np.array([self.catalog.files[l].master_site
+                            for l in self.lfns], np.intp)
+        files = np.arange(len(self.lfns))
+        fetchable[masters, files] |= held[masters, files]
+        return held, fetchable
+
+    def value_matrix(self, now: float) -> tuple[np.ndarray, np.ndarray]:
+        """Score every (site, file) pair; returns ``(V, held)``.
+
+        ``V[s, f]`` excludes self-supply, so for a held file it reads as
+        *retention* value (what evicting it would cost) and for a missing
+        file as *acquisition* value — one matrix prices both sides of
+        the auction."""
+        held, fetchable = self._holder_masks()
+        net = self.network
+        bw = net.point_bandwidth_matrix()
+        n_sites = held.shape[0]
+        floats = net.to_device(np.concatenate(
+            [self.model.demand(now).ravel(), self.sizes]))
+        demand = floats[: fetchable.size].view(n_sites, -1)
+        sizes = floats[fetchable.size:]
+        v = value_score(demand, sizes,
+                        torch.from_numpy(fetchable).to(bw.device), bw,
+                        mode=self.model.mode)
+        return v.cpu().numpy(), held
+
+    # -- the auction -------------------------------------------------------
+    def step(self, now: float) -> list[ProposedReplication]:
+        self.access.sync()             # pick up late-registered files
+        v, held = self.value_matrix(now)
+        online = np.array([s.online for s in self.topology.sites], bool)
+        wanted = (~held) & online[:, None] & (v >= self.model.min_value)
+        self.rounds += 1
+        if not wanted.any():
+            return []
+        n_files = len(self.lfns)
+        out: list[ProposedReplication] = []
+        per_site_used: dict[int, int] = {}
+        # descending value; ties by flat (site, file) index — deterministic
+        order = np.argsort(-v, axis=None, kind="stable")
+        for flat in order:
+            if len(out) >= self.max_transfers:
+                break
+            s, f = divmod(int(flat), n_files)
+            if v[s, f] < self.model.min_value:
+                break                      # sorted: everything below is too
+            if not wanted[s, f]:
+                continue
+            if per_site_used.get(s, 0) >= self.per_site:
+                continue
+            prop = self._try_acquire(s, f, v)
+            if prop is not None:
+                out.append(prop)
+                per_site_used[s] = per_site_used.get(s, 0) + 1
+        self.proposed += len(out)
+        return out
+
+    def _try_acquire(self, s: int, f: int,
+                     v: np.ndarray) -> ProposedReplication | None:
+        lfn = self.lfns[f]
+        size = float(self.sizes[f])
+        holders = [h for h in
+                   self.catalog.fetchable_holders(lfn, self.topology)
+                   if h != s]
+        if not holders:
+            return None
+        src = max(holders,
+                  key=lambda h: (self.network.point_bandwidth(h, s), -h))
+        free = self.storage.free(s)
+        evictions: list[str] = []
+        evicted_value = 0.0
+        if free < size:
+            # cheapest-first among evictable residents; abort the trade if
+            # the evicted side would out-value the incoming file
+            resident = [l for l in self.storage.site_contents(s)
+                        if self.storage.evictable(s, l)]
+            if not resident:
+                return None
+            scores = np.array([v[s, self.access.lfn_index[l]]
+                               for l in resident])
+            for i in np.argsort(scores, kind="stable"):
+                l = resident[int(i)]
+                evictions.append(l)
+                evicted_value += float(scores[int(i)])
+                free += self.catalog.size(l)
+                if free >= size:
+                    break
+            if free < size or evicted_value >= v[s, f]:
+                return None                # not enough space, or a net loss
+        return ProposedReplication(lfn=lfn, src=src, dst=s,
+                                   evictions=evictions,
+                                   value=float(v[s, f]),
+                                   evicted_value=evicted_value)

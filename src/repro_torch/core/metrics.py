@@ -77,9 +77,17 @@ def run_experiment(
     tensors: ``"cuda"`` (the default) runs the kernels on the card and
     raises without one; ``"cpu"`` runs their plain PyTorch versions.
 
-    Kept for the reference's signature and still raising when they would
-    take effect: ``strategy_mode="batch"``, an armed economy (``econ`` /
-    ``econ_interval``) and ``obs`` other than off.
+    ``strategy_mode`` picks the planning engine: ``"sequential"`` (one
+    ``plan_fetch`` per missing file) or ``"batch"`` (whole arrival bursts
+    planned in one ``strategy_plan`` pass on ``device``). ``econ`` keeps
+    the reference's values (``"pallas-interpret"`` raises once the economy
+    is armed) and ``econ_interval`` is the economy's period: ``None`` arms
+    it for the access-aware strategies (``economic``, ``predictive``), a
+    value > 0 forces it on, 0 turns it off; its value matrix is scored by
+    the ``value_score`` kernel on ``device``.
+
+    Kept for the reference's signature and still raising when it would
+    take effect: ``obs`` other than off.
     """
     topology = build_topology(
         cfg, path_model="topmost" if net == "topmost" else "full")

@@ -39,6 +39,14 @@ Slot writes made by :meth:`alloc`/:meth:`release` are staged on the host
 and applied in one scatter before anything reads the slot tensors, so a
 transfer start costs no launch; link arrays and the re-rate index list go
 up in one copy per kernel call.
+
+The point-bandwidth queries (:meth:`point_bandwidth_matrix`,
+:meth:`point_bandwidth_columns`) serve the batched planners, the
+shortest-transfer broker and the replication economy: a gather-min of the
+link shares over the static ``(sites, sites, depth)`` pair-path tensor,
+which goes to the device once, as int32; the link arrays go up in one copy
+per query. The singleton planner route reads one column on the host
+(:meth:`point_bandwidth_column`).
 """
 
 from __future__ import annotations
@@ -128,6 +136,13 @@ class NetworkEngine:
         # per-event work counters, as in the reference engine
         self.stats = {"rerate_calls": 0, "rerate_slots": 0,
                       "flush_passes": 0, "flush_slots": 0}
+        # the static (sites, sites, depth) pair-path tensor, built at first
+        # use: the host copy (np.intp, -1 padded) feeds the per-destination
+        # host columns, the device copy (int32, -1 mapped to the inf
+        # sentinel index n_links) the device gather-mins
+        self._pair_paths: Optional[np.ndarray] = None
+        self._pair_idx: Optional[torch.Tensor] = None
+        self._col_paths: dict[int, tuple[np.ndarray, np.ndarray]] = {}
 
     @property
     def link_bw(self) -> np.ndarray:
@@ -211,7 +226,7 @@ class NetworkEngine:
         buf[0] = slots
         buf[1:3] = np.array(list(staged.values()), np.float64).T
         buf[3:] = self._path[slots].T
-        t = self._to_device(buf)
+        t = self.to_device(buf)
         idx = t[0].long()
         self.rem[idx] = t[1]
         # index_fill_, not `x[idx] = scalar`: the latter copies the scalar
@@ -222,7 +237,9 @@ class NetworkEngine:
         self.active[idx] = t[2] > 0.0
         self.path[idx] = t[3:].T.int()
 
-    def _to_device(self, a: np.ndarray) -> torch.Tensor:
+    def to_device(self, a: np.ndarray) -> torch.Tensor:
+        """``a`` on the engine's device in one host-to-device copy (on
+        the CPU, a tensor sharing ``a``'s memory)."""
         t = torch.from_numpy(a)
         return t if self.device.type == "cpu" else t.to(self.device)
 
@@ -234,7 +251,7 @@ class NetworkEngine:
         buf = np.empty(2 * n_links + len(slots))
         buf[: 2 * n_links] = self._links.ravel()
         buf[2 * n_links:] = slots
-        t = self._to_device(buf)
+        t = self.to_device(buf)
         return (t[2 * n_links:].int(), t[:n_links],
                 t[n_links: 2 * n_links])
 
@@ -279,6 +296,87 @@ class NetworkEngine:
         out["link_bw"] = self.link_bw.copy()
         out["link_act"] = self.link_act.copy()
         return out
+
+    # -- bandwidth queries -------------------------------------------------
+    def point_bandwidth(self, src: int, dst: int) -> float:
+        """Available bandwidth if one more transfer joined ``src -> dst``,
+        from the engine's host link arrays: the min over the pair's links
+        of ``bandwidth / (active + 1)``, equal bit for bit to
+        :meth:`GridTopology.point_bandwidth` (the replication economy's
+        source pick reads it)."""
+        bw_l, act = self._links
+        bw = math.inf
+        for li in self.topology.link_ids_for(src, dst):
+            share = bw_l[li] / (act[li] + 1.0)
+            if share < bw:
+                bw = share
+        return float(bw)
+
+    def _pair_path_host(self) -> np.ndarray:
+        if self._pair_paths is None:
+            self._pair_paths = self.topology.pair_link_matrix()
+        return self._pair_paths
+
+    def _device_shares(self, extra: Optional[np.ndarray] = None
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+        """``(shares, extra)`` on the device from one copy: the per-link
+        ``bandwidth / (active + 1)`` with an ``inf`` sentinel appended at
+        index ``n_links`` (where the path tensor's padding points), and
+        ``extra`` (float64 values sent up in the same buffer)."""
+        n = self.n_links
+        extra = np.empty(0) if extra is None else extra
+        buf = np.empty(2 * n + extra.size)
+        buf[: 2 * n] = self._links.ravel()
+        buf[2 * n:] = extra
+        t = self.to_device(buf)
+        shares = torch.empty(n + 1, dtype=torch.float64, device=t.device)
+        shares[:n] = t[:n] / (t[n: 2 * n] + 1.0)
+        shares[n:].fill_(math.inf)
+        if self._pair_idx is None:
+            p = self._pair_path_host()
+            self._pair_idx = self.to_device(
+                np.where(p >= 0, p, n).astype(np.int32))
+        return shares, t[2 * n:]
+
+    def point_bandwidth_matrix(self) -> torch.Tensor:
+        """``B[h, s]`` = :meth:`point_bandwidth` for every (source, dst)
+        pair as one ``(sites, sites)`` float64 tensor on the engine's
+        device: a gather-min of the link shares over the static pair-path
+        tensor, which lives on the device (int32, 3 MB at 500 sites); the
+        link arrays go up in one copy per call. The shared snapshot the
+        shortest-transfer broker and the replication economy price with.
+        Divide and min are exact, so it equals the reference's numpy
+        matrix bit for bit."""
+        shares, _ = self._device_shares()
+        return shares[self._pair_idx].amin(dim=-1)
+
+    def point_bandwidth_columns(self, dsts) -> torch.Tensor:
+        """Destination columns of :meth:`point_bandwidth_matrix`,
+        ``(sites, len(dsts))`` on the device, without building the full
+        matrix — the batched planners' per-burst read. Destinations repeat
+        within a burst, so each distinct column is gathered once and then
+        replicated (the unique runs on the host, and goes up with the link
+        arrays in one copy)."""
+        u, inv = np.unique(np.asarray(dsts, np.intp), return_inverse=True)
+        shares, ix = self._device_shares(np.concatenate([u, inv]))
+        ix = ix.long()
+        cols = shares[self._pair_idx[:, ix[: u.size], :]].amin(dim=-1)
+        return cols[:, ix[u.size:]]
+
+    def point_bandwidth_column(self, dst: int) -> np.ndarray:
+        """One destination column, ``(sites,)``, on the host: the batched
+        planners' singleton replan route, which needs it on the host
+        anyway. The reference's numpy expression over the host link arrays
+        and a cached slice of the host path tensor — bit-identical to
+        ``point_bandwidth_columns([dst])[:, 0]``."""
+        cached = self._col_paths.get(dst)
+        if cached is None:
+            p = self._pair_path_host()[:, dst, :]
+            cached = (np.ascontiguousarray(np.maximum(p, 0)), p >= 0)
+            self._col_paths[dst] = cached
+        idx, valid = cached
+        share = self.link_bw / (self.link_act + 1.0)
+        return np.where(valid, share[idx], np.inf).min(axis=-1)
 
     # -- fluid model -------------------------------------------------------
     def advance(self, now: float) -> None:

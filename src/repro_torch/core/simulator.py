@@ -8,16 +8,22 @@ time = max(transfer time, queue time) + processing time.
 The fluid network lives in :class:`repro_torch.core.network.NetworkEngine`,
 whose slot state sits on ``device`` (``"cuda"`` by default) and whose
 re-rates run the port's CUDA kernels; ``net=`` picks its backend as in the
-reference. ``broker="jax"`` dispatches simultaneous arrivals through
-:class:`repro_torch.core.torchsched.TorchScheduler` (the ``dataaware``
-policy). The host-side event heap, queues and ``random.Random`` streams
-are the reference's, so results match it bit for bit.
+reference. ``broker="jax"`` dispatches simultaneous arrivals through the
+batch brokers of :mod:`repro_torch.core.torchsched` (``dataaware``,
+``leastloaded``, ``random``, and ``shortesttransfer`` on the ``st_cost``
+kernel). ``strategy_mode="batch"`` plans every (job, missing-file) fetch
+of a burst in one ``strategy_plan`` pass and consumes the cached plans
+under the reference's keep / reverdict / replan guard (``_live_plan``).
+The replication economy (an armed ``econ_interval``, or the ``economic``
+and ``predictive`` strategies) runs as the periodic ``ECON`` event, its
+value matrix scored by the ``value_score`` kernel. The host-side event
+heap, queues and ``random.Random`` streams are the reference's, so results
+match it bit for bit.
 
 Not in this slice, and raising ``NotImplementedError``: telemetry
-(``obs=`` / ``REPRO_OBS`` other than off), the tie-race sanitizer
-(``sanitize=True``), the replication economy (an armed ``econ_interval``),
-``strategy_mode="batch"`` and the other batch brokers. Failure, slowdown
-and speculative-backup injection work as in the reference.
+(``obs=`` / ``REPRO_OBS`` other than off) and the tie-race sanitizer
+(``sanitize=True``). Failure, slowdown and speculative-backup injection
+work as in the reference.
 """
 
 from __future__ import annotations
@@ -33,7 +39,7 @@ import torch
 
 from .access import AccessHistory
 from .catalog import ReplicaCatalog
-from .economy import DEFAULT_INTERVAL_S, ECON_BACKENDS
+from .economy import DEFAULT_INTERVAL_S, ECON_BACKENDS, ReplicationOptimizer
 from .network import BACKENDS, NetworkEngine
 from .replica import FetchPlan, ReplicaStrategy, StorageState, make_strategy
 from .scheduler import Job, SchedulerPolicy, make_scheduler
@@ -44,7 +50,7 @@ from .topology import GridTopology
 # events
 # --------------------------------------------------------------------------
 (SUBMIT, NET, CPU_DONE, FAIL, RECOVER, SLOW_START, SLOW_END, WATCHDOG,
- FLUSH) = range(9)
+ FLUSH, ECON) = range(10)
 
 #: Values the ``net=`` engine flag accepts: NetworkEngine backends plus
 #: ``"topmost"``, which keeps the numpy backend over a topology built with
@@ -81,6 +87,10 @@ class _JobState:
     remaining_ops: float = 0.0
     rounds: int = 0                      # staging rounds (re-fetch after eviction)
     pin_on_arrival: bool = False         # anti-livelock escalation
+    # burst-planned fetches awaiting execution (strategy_mode="batch"):
+    # one FetchPlan per still-missing file, consumed by _fetch_next
+    plan_cache: dict[str, "FetchPlan"] = dataclasses.field(
+        default_factory=dict)
 
 
 @dataclasses.dataclass
@@ -160,10 +170,6 @@ class GridSimulator:
             raise NotImplementedError(
                 f"obs={obs!r}: telemetry is not ported yet (ROADMAP queue 1 "
                 "item 7); run with obs off and REPRO_OBS unset or 'off'")
-        if sanitize:
-            raise NotImplementedError(
-                "sanitize=True: the tie-race sanitizer is not ported yet "
-                "(ROADMAP queue 1 item 8)")
         if econ not in ECON_BACKENDS:
             raise ValueError(f"unknown econ backend {econ!r} "
                              f"(want one of {ECON_BACKENDS})")
@@ -187,9 +193,13 @@ class GridSimulator:
                     "path_model='topmost'), or run_experiment(net="
                     "'topmost') which does this for you)")
             net = "numpy"
+        # the network engine is built before the strategy: the batched
+        # planners read their per-burst bandwidth columns from it
         self.network = NetworkEngine(topology, backend=net, device=device)
         self.device = self.network.device
-        # access history: pure observation, fed from the fetch/hit path
+        # access history: pure observation, fed from the fetch/hit path.
+        # Shared with the strategy (the access-aware ones consult it) and
+        # the replication economy (which acts on it).
         if isinstance(strategy, ReplicaStrategy):
             if strategy_mode != "sequential":
                 raise ValueError(
@@ -205,31 +215,49 @@ class GridSimulator:
             self.access = AccessHistory(catalog, topology)
             self.strategy = make_strategy(strategy, catalog, topology,
                                           self.storage, self.access,
-                                          mode=strategy_mode)
+                                          mode=strategy_mode,
+                                          network=self.network)
+        # batched planners consume whole arrival bursts (`_batch_fetch`)
+        # and cache an online-site vector the failure paths invalidate
+        self._batched_strategy = getattr(self.strategy, "batched", False)
         self.rng = _random.Random(seed)
         self.speculative_backups = speculative_backups
         self.straggler_threshold = straggler_threshold
         self.batch_window = batch_window
-        # the replication economy: None arms it only for strategies that
-        # declare uses_economy (none of the ported ones)
+        # the replication economy (proactive, periodic): None arms it only
+        # for the strategies that declare uses_economy, at the default
+        # period; an explicit interval > 0 forces it on, 0 turns it off
         if econ_interval is None:
             econ_interval = (DEFAULT_INTERVAL_S
                              if self.strategy.uses_economy else 0.0)
+        self._econ_interval = econ_interval
         if econ_interval > 0:
-            raise NotImplementedError(
-                "the replication economy (econ_interval > 0) is not ported "
-                "yet (ROADMAP queue 1 item 5)")
+            self._econ = ReplicationOptimizer(
+                catalog, topology, self.storage, self.access, self.network,
+                model=self.strategy.econ_model, backend=econ)
+        else:
+            self._econ = None
+        self._econ_armed = False
         if broker == "jax":
             # the batch broker flag keeps the reference's name
-            if self.scheduler.name == "dataaware":
-                from .torchsched import TorchScheduler
-                self._batch_broker = TorchScheduler(catalog, topology,
-                                                    device=self.device)
-            elif self.scheduler.name in ("shortesttransfer", "leastloaded",
-                                         "random"):
-                raise NotImplementedError(
-                    f"broker='jax' with scheduler {self.scheduler.name!r} is "
-                    "not ported yet (ROADMAP queue 1 item 3)")
+            from . import torchsched
+            name = self.scheduler.name
+            if name == "dataaware":
+                self._batch_broker = torchsched.TorchScheduler(
+                    catalog, topology, device=self.device)
+            elif name == "shortesttransfer":
+                self._batch_broker = torchsched.TorchShortestTransferBroker(
+                    catalog, topology, self.network, device=self.device)
+            elif name == "leastloaded":
+                self._batch_broker = torchsched.TorchLeastLoadedBroker(
+                    catalog, topology, device=self.device)
+            elif name == "random":
+                # share the policy's Random: single-job batches (which
+                # fall back to the sequential policy) and batched dispatch
+                # then consume one PRNG stream
+                self._batch_broker = torchsched.TorchRandomBroker(
+                    catalog, topology, self.scheduler.rng,
+                    device=self.device)
             else:
                 raise ValueError(
                     "broker='jax' implements the 'dataaware', "
@@ -245,6 +273,17 @@ class GridSimulator:
             raise ValueError(f"unknown broker {broker!r} (want 'event'|'jax')")
         self._batch_buf: list[Job] = []
         self._flush_pending = False
+        if sanitize:
+            # twin replay deep-copies the engine; the batch brokers and the
+            # batched planners ride catalog/storage listeners a copy drops
+            if self._batch_broker is not None or self._batched_strategy:
+                raise ValueError(
+                    "sanitize=True requires broker='event' and "
+                    "strategy_mode='sequential' (twin replay deep-copies "
+                    "the engine, dropping listeners)")
+            raise NotImplementedError(
+                "sanitize=True: the tie-race sanitizer is not ported yet "
+                "(ROADMAP queue 1 item 8)")
 
         self._q: list[tuple[float, int, int, object]] = []
         self._seq = 0
@@ -329,9 +368,15 @@ class GridSimulator:
         if eta is not None:
             self._push(eta, NET, self._net_version)
 
-    def _start_transfer(self, plan: FetchPlan, js: _JobState) -> None:
+    def _start_transfer(self, plan: FetchPlan,
+                        js: Optional[_JobState]) -> None:
+        """Start a transfer. ``js`` is the waiting job, or ``None`` for a
+        proactive (economy-initiated) prefetch: same fluid-model slot and
+        link contention, but no waiter, and accounted as prefetch traffic
+        rather than per-job inter-communication."""
         key = (plan.dst, plan.lfn)
-        if key in self._inflight and self._inflight[key].plan.store:
+        if js is not None and key in self._inflight \
+                and self._inflight[key].plan.store:
             # another job at this site is already fetching it; piggyback
             self._inflight[key].waiters.append(js)
             return
@@ -345,19 +390,25 @@ class GridSimulator:
             self.topology.sites[plan.dst].used_storage += size  # reserve
         self.storage.pin(plan.src, plan.lfn)   # source can't be evicted mid-copy
         self._tid += 1
-        tr = _Transfer(self._tid, plan, link_ids, waiters=[js])
+        tr = _Transfer(self._tid, plan, link_ids,
+                       waiters=[] if js is None else [js])
         self._transfers[tr.tid] = tr
         self.network.alloc(tr, size, link_ids)
         if plan.store:
             self._inflight[key] = tr
         if plan.inter_region:
-            self._inter_comms[js.job.job_id] = self._inter_comms.get(js.job.job_id, 0) + 1
-            self._wan_bytes[js.job.job_id] = self._wan_bytes.get(js.job.job_id, 0.0) + size
+            if js is not None:
+                self._inter_comms[js.job.job_id] = self._inter_comms.get(js.job.job_id, 0) + 1
+                self._wan_bytes[js.job.job_id] = self._wan_bytes.get(js.job.job_id, 0.0) + size
             self.total_wan_bytes += size
         else:
             self.total_lan_bytes += size
-        self.access.record_fetch(plan.src, plan.dst, plan.lfn, size,
-                                 plan.inter_region, self.now)
+        if js is None:
+            self.access.record_prefetch(plan.src, plan.dst, plan.lfn, size,
+                                        self.now)
+        else:
+            self.access.record_fetch(plan.src, plan.dst, plan.lfn, size,
+                                     plan.inter_region, self.now)
         self._net_rerate(link_ids)
 
     def _finish_transfer(self, tr: _Transfer) -> None:
@@ -418,7 +469,8 @@ class GridSimulator:
     def _schedule(self, job: Job) -> None:
         self._place(job, self.scheduler.select_site(job))
 
-    def _place(self, job: Job, site: int) -> _JobState:
+    def _place(self, job: Job, site: int, *,
+               defer_fetch: bool = False) -> _JobState:
         js = _JobState(job=job, site=site, remaining_ops=job.length)
         self._site_jobs[site][js] = None
         self.topology.sites[site].queued_work += job.length
@@ -430,7 +482,8 @@ class GridSimulator:
             self.access.record_access(site, lfn, self.now)
             if lfn not in js.missing:
                 self.access.record_hit(site, lfn, self.now)
-        self._fetch_next(js)
+        if not defer_fetch:
+            self._fetch_next(js)
         return js
 
     def _drain_submit_batch(self, first: Job) -> list[Job]:
@@ -449,8 +502,15 @@ class GridSimulator:
             return
         assert self._batch_broker is not None
         sites = self._batch_broker.select_batch([j.required for j in batch])
-        for job, site in zip(batch, sites):
-            self._place(job, site)
+        if self._batched_strategy:
+            # burst-level plan consumption: place everything first, then
+            # plan every job's missing files in one strategy_plan pass
+            jss = [self._place(job, site, defer_fetch=True)
+                   for job, site in zip(batch, sites)]
+            self._batch_fetch(jss)
+        else:
+            for job, site in zip(batch, sites):
+                self._place(job, site)
 
     def _next_missing(self, js: _JobState) -> Optional[str]:
         """Pop ``js.missing`` down to its first file that still needs a
@@ -471,7 +531,11 @@ class GridSimulator:
             return
         lfn = self._next_missing(js)
         if lfn is not None:
-            plan = self.strategy.plan_fetch(lfn, js.site)
+            plan = js.plan_cache.pop(lfn, None)
+            if plan is not None:
+                plan = self._live_plan(plan)
+            if plan is None:
+                plan = self.strategy.plan_fetch(lfn, js.site)
             js.pending_transfers += 1
             self._start_transfer(plan, js)
             return
@@ -479,6 +543,63 @@ class GridSimulator:
             if js.data_ready_time < 0:
                 js.data_ready_time = self.now
             self._enqueue_cpu(js)
+
+    def _batch_fetch(self, jss: list[_JobState]) -> None:
+        """``strategy_mode="batch"``: plan EVERY (job, missing-file) fetch
+        of the burst in one ``plan_batch`` pass and cache the plans on
+        each job, so the whole staging chain rides the batched planner.
+        ``_fetch_next`` consumes the cache one transfer at a time under
+        the ``_live_plan`` guard: an earlier plan of the burst (or any
+        event between burst and consumption) may take the space or the
+        very replica a later plan counted on."""
+        pairs = [(lfn, js.site) for js in jss for lfn in js.missing]
+        if pairs:
+            plans = self.strategy.plan_batch(pairs)
+            owners = (js for js in jss for _ in js.missing)
+            for js, (lfn, _), plan in zip(owners, pairs, plans):
+                js.plan_cache[lfn] = plan
+        for js in jss:
+            self._fetch_next(js)
+
+    def _live_plan(self, plan: FetchPlan) -> Optional[FetchPlan]:
+        """Adapt a burst-cached plan to the live state: keep it while it
+        is still exactly executable, hand it to the strategy's cheap
+        ``refresh_plan`` when only its store/eviction verdict went stale,
+        and drop it (``None`` — full singleton replan) when the chosen
+        source itself is gone or a cheaper class of source has appeared
+        (an inter-region plan whose file now has a regional copy). The
+        guards run in the reference's order; another order changes which
+        of keep, reverdict and replan a plan gets."""
+        if plan.store and (plan.dst, plan.lfn) in self._inflight:
+            return plan      # piggybacks onto the in-flight transfer
+        if not self.catalog.has_replica(plan.lfn, plan.src):
+            return None      # the chosen source was evicted since the burst
+        if not (self.topology.sites[plan.src].online
+                or self.catalog.is_master(plan.lfn, plan.src)):
+            return None
+        if plan.inter_region and self.catalog.duplicated_in_region(
+                plan.lfn, plan.dst, self.topology):
+            return None      # a regional copy appeared since the burst:
+            # keeping the snapshot's WAN source would double-count
+            # inter-region traffic the sequential pipeline avoids
+        need = self.catalog.size(plan.lfn)
+        free = self.storage.free(plan.dst)
+        if plan.store and plan.evictions:
+            # planned evictions must still exist, still cover, and still
+            # be necessary (a file that fits outright now must not evict)
+            if (free < need
+                    and all(self.storage.holds(plan.dst, l)
+                            and self.storage.evictable(plan.dst, l)
+                            for l in plan.evictions)
+                    and free + sum(self.catalog.size(l)
+                                   for l in plan.evictions) >= need):
+                return plan
+        elif plan.store:
+            if free >= need:
+                return plan
+        elif free < need:    # store=False stays the right call only
+            return plan      # while the file cannot fit
+        return self.strategy.refresh_plan(plan)
 
     def _working_set_missing(self, js: _JobState) -> list[str]:
         return [f for f in js.job.required
@@ -573,6 +694,36 @@ class GridSimulator:
             self._maybe_start_cpu(site)
         self._site_jobs[site].pop(js, None)
 
+    # -- replication economy -------------------------------------------------
+    def _econ_round(self) -> None:
+        """One periodic proactive-replication round: auction the top-valued
+        files (``ReplicationOptimizer.step``) and execute the winners as
+        waiter-less store transfers. Prefetches ride the same fluid model
+        as job fetches, so the cost side of the economy is real."""
+        assert self._econ is not None
+        self._net_advance()
+        for prop in self._econ.step(self.now):
+            # revalidate against the live state: an earlier winner in this
+            # same round may have pinned a source copy or consumed space
+            if self.storage.holds(prop.dst, prop.lfn) or \
+                    (prop.dst, prop.lfn) in self._inflight:
+                continue
+            if not self.catalog.has_replica(prop.lfn, prop.src):
+                continue
+            if not all(self.storage.holds(prop.dst, l)
+                       and self.storage.evictable(prop.dst, l)
+                       for l in prop.evictions):
+                continue
+            free = self.storage.free(prop.dst) + sum(
+                self.catalog.size(l) for l in prop.evictions)
+            if free < self.catalog.size(prop.lfn):
+                continue
+            self._start_transfer(prop.to_plan(self.topology), None)
+        if len(self.records) < self._n_expected:
+            self._push(self.now + self._econ_interval, ECON, None)
+        else:
+            self._econ_armed = False   # workload drained; disarm
+
     # -- failures / stragglers ----------------------------------------------
     def _fail_site(self, site: int) -> None:
         st = self.topology.sites[site]
@@ -580,6 +731,8 @@ class GridSimulator:
             return
         self._cpu_advance(site)
         st.online = False
+        if self._batched_strategy:
+            self.strategy.invalidate_online()
         self._abort_transfers_touching(site)
         # lose non-master replicas (the SE is gone); masters are durable
         for lfn in self.storage.site_contents(site):
@@ -604,6 +757,8 @@ class GridSimulator:
 
     def _recover_site(self, site: int) -> None:
         self.topology.sites[site].online = True
+        if self._batched_strategy:
+            self.strategy.invalidate_online()
         self._maybe_start_cpu(site)
 
     def _watchdog(self, js: _JobState) -> None:
@@ -631,6 +786,11 @@ class GridSimulator:
     # -- main loop -----------------------------------------------------------
     def run(self, until: float = float("inf")) -> SimResult:
         self.network.last = 0.0
+        if self._econ is not None and not self._econ_armed:
+            # first optimizer round one interval in — by then the access
+            # history holds a usable demand signal
+            self._econ_armed = True
+            self._push(self.now + self._econ_interval, ECON, None)
         batched = self.network.batched
         while self._q:
             if batched:
@@ -718,6 +878,8 @@ class GridSimulator:
             self._reschedule_cpu(site)
         elif kind == WATCHDOG:
             self._watchdog(payload)  # type: ignore[arg-type]
+        elif kind == ECON:
+            self._econ_round()
 
     def _drain_instant(self, t0: float) -> None:
         """Pop and handle every event at time ``t0``, including events the

@@ -29,7 +29,8 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent.parent / "build" / "kernels"
-KERNELS = ("event_engine", "net_rerate")
+KERNELS = ("event_engine", "net_rerate", "strategy_plan", "st_cost",
+           "value_score")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
@@ -46,6 +47,14 @@ _SIGNATURES = {
     "net_rerate": ("net_rerate",
                    [_VP, _I64, _VP, _I64, _VP, _VP, _I64, _VP, _VP, _F64,
                     _VP, _VP, _INT]),
+    "strategy_plan": ("strategy_plan",
+                      [_VP, _VP, _VP, _VP, _VP, _VP, _I64, _I64, _VP, _VP,
+                       _VP, _INT]),
+    "st_cost": ("st_cost",
+                [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _I64, _I64, _I64, _VP,
+                 _VP, _VP, _INT]),
+    "value_score": ("value_score",
+                    [_VP, _VP, _VP, _VP, _I64, _I64, _INT, _VP, _VP, _INT]),
 }
 
 _lock = threading.Lock()
@@ -133,6 +142,29 @@ def check(name: str, err: int) -> None:
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
     LAUNCHES[name] += 1
+
+
+def check_args(name: str, args) -> torch.device:
+    """What the dense kernels take: ``args`` is a sequence of ``(label,
+    tensor, dtype, shape)``; every tensor must be contiguous, of its
+    dtype and shape, and on one CUDA device, which is returned."""
+    dev = args[0][1].device
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: the CUDA kernel takes CUDA tensors, got "
+                         f"{dev}")
+    for label, t, dtype, shape in args:
+        if t.device != dev or t.dtype != dtype or not t.is_contiguous():
+            raise ValueError(f"{name}: {label} must be a contiguous {dtype} "
+                             f"tensor on {dev}")
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{name}: {label} has shape "
+                             f"{tuple(t.shape)}, want {tuple(shape)}")
+    return dev
+
+
+def stream(dev: torch.device) -> int:
+    """The current CUDA stream of ``dev`` as the C entry points take it."""
+    return torch.cuda.current_stream(dev).cuda_stream
 
 
 def check_inputs(name: str, idx, path, slot_arrays, link_arrays) -> None:

@@ -2,11 +2,13 @@
 
     PYTHONPATH=src python -m repro_torch.launch.profile_scale \\
         [--scenario grid_500_saturated] [--jobs 2000] [--device cuda] \\
-        [--trace-jobs 500]
+        [--strategy-mode batch] [--trace-jobs 500]
 
 Runs the scenario once with exclusive (self-time) timers wrapped around the
-layers' entry methods — the batch broker, the strategy, the network
-engine's flush / completions / re-rate / slot lifecycle — and prints each
+layers' entry methods — the batch brokers, the strategies (the batched
+planner's burst pass and its device part), the replication economy, the
+network engine's bandwidth queries, flush / completions / re-rate / slot
+lifecycle — and prints each
 layer's share of the wall time; what no timer covers is the event loop's
 own bookkeeping. With ``--trace-jobs N`` > 0 it then runs N jobs under
 ``torch.profiler`` and prints the device's busy time (the sum of the CUDA
@@ -18,15 +20,20 @@ methods of this process only; the package is unchanged.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import functools
 import time
 from collections import defaultdict
 
 import torch
 
-from repro_torch.core import SCENARIOS, HRSStrategy, NetworkEngine
+from repro_torch.core import (SCENARIOS, EconomicStrategy, HRSStrategy,
+                              NetworkEngine, PredictiveStrategy,
+                              ReplicationOptimizer)
+from repro_torch.core.replica import _BatchedStrategy
 from repro_torch.core.scheduler import DataAwareScheduler
-from repro_torch.core.torchsched import TorchScheduler
+from repro_torch.core.torchsched import (TorchScheduler,
+                                         TorchShortestTransferBroker)
 from repro_torch.device import resolve_device
 from repro_torch.kernels import _cuda
 from repro_torch.launch.experiments import device_name, run_spec
@@ -34,8 +41,18 @@ from repro_torch.launch.experiments import device_name, run_spec
 #: (class, method, layer) of every timed entry point
 TIMED = (
     (TorchScheduler, "select_batch", "broker.select_batch"),
+    (TorchShortestTransferBroker, "select_batch", "broker.select_batch"),
     (DataAwareScheduler, "select_site", "broker.select_site"),
     (HRSStrategy, "plan_fetch", "strategy.plan_fetch"),
+    (EconomicStrategy, "plan_fetch", "strategy.plan_fetch"),
+    (PredictiveStrategy, "plan_fetch", "strategy.plan_fetch"),
+    (_BatchedStrategy, "plan_fetch", "strategy.plan_fetch"),
+    (_BatchedStrategy, "plan_batch", "strategy.plan_batch"),
+    (_BatchedStrategy, "_plan_on_device", "strategy.plan_on_device"),
+    (ReplicationOptimizer, "step", "econ.step"),
+    (ReplicationOptimizer, "value_matrix", "econ.value_matrix"),
+    (NetworkEngine, "point_bandwidth_columns", "net.bandwidth_query"),
+    (NetworkEngine, "point_bandwidth_matrix", "net.bandwidth_query"),
     (NetworkEngine, "flush", "net.flush"),
     (NetworkEngine, "completions", "net.completions"),
     (NetworkEngine, "rerate", "net.rerate"),
@@ -153,11 +170,16 @@ def main(argv=None) -> None:
     ap.add_argument("--scenario", default="grid_500_saturated")
     ap.add_argument("--jobs", type=int, default=2000)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--strategy-mode", default=None,
+                    choices=("sequential", "batch"),
+                    help="override the scenario's strategy_mode")
     ap.add_argument("--trace-jobs", type=int, default=0,
                     help="also run this many jobs under torch.profiler")
     args = ap.parse_args(argv)
     dev = resolve_device(args.device)
     spec = SCENARIOS[args.scenario]
+    if args.strategy_mode is not None:
+        spec = dataclasses.replace(spec, strategy_mode=args.strategy_mode)
     layer_breakdown(spec, args.jobs, dev)
     if args.trace_jobs > 0:
         device_trace(spec, args.trace_jobs, dev)

@@ -140,15 +140,6 @@ def test_batch_window_holds_then_flushes():
         assert r.job_time > 0
 
 
-@pytest.mark.parametrize("scheduler", ["leastloaded", "random",
-                                       "shortesttransfer"])
-def test_other_batch_brokers_not_ported(scheduler):
-    with pytest.raises(NotImplementedError, match="broker='jax'"):
-        run_experiment(GridConfig(n_regions=2, sites_per_region=4),
-                       scheduler=scheduler, n_jobs=4, broker="jax",
-                       device="cpu")
-
-
 def test_unknown_broker_rejected():
     with pytest.raises(ValueError):
         run_experiment(GridConfig(n_regions=2, sites_per_region=2),

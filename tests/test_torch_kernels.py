@@ -1,4 +1,5 @@
-"""The port's two network kernels against the reference's float64 oracles.
+"""The port's network kernels against the reference's float64 oracles,
+and the CUDA kernels of all five against their plain versions on the card.
 
 On the CPU the port's wrappers run the plain PyTorch versions; they must
 be bit-identical (``np.array_equal``, infs in the same places) to
@@ -18,12 +19,20 @@ import torch
 
 from repro.kernels.event_engine import event_engine_core
 from repro.kernels.net_rerate import net_rerate_ref as oracle_rerate
+from repro.kernels.st_cost import st_cost_ref as oracle_st_cost
+from repro.kernels.strategy_plan import strategy_plan_ref as oracle_plan
+from repro.kernels.value_score import value_score_ref as oracle_value
 from repro_torch.kernels import _cuda
 from repro_torch.kernels.event_engine import (event_engine,
                                               event_engine_kernel,
                                               event_engine_ref)
 from repro_torch.kernels.net_rerate import (net_rerate, net_rerate_kernel,
                                             net_rerate_ref)
+from repro_torch.kernels.st_cost import st_cost_kernel, st_cost_ref
+from repro_torch.kernels.strategy_plan import (strategy_plan_kernel,
+                                               strategy_plan_ref)
+from repro_torch.kernels.value_score import (value_score_kernel,
+                                             value_score_ref)
 
 SIZES = (0, 1, 127, 4096, 16384)
 N_LINKS = 555
@@ -182,3 +191,92 @@ def test_cuda_kernels_match_plain_versions(n_dirty):
                        cuda(act), now)
     assert torch.equal(a, b)
     assert torch.equal(k["rate"], p["rate"])
+
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda", 0)
+
+
+def _plan_inputs(seed: int, sites: int, pairs: int, served: bool):
+    """A burst's planner inputs: quantized bandwidths (ties), sparse
+    holders, all-masked columns, and zero or nonzero serve."""
+    rng = np.random.default_rng(seed)
+    bw = rng.choice([0.0, 6.25e5, 1.25e6, 2.5e6, 1.25e8], (sites, pairs))
+    fetch = rng.random((sites, pairs)) < 0.05
+    fetch[:, ::7] = False
+    local = rng.random((sites, pairs)) < 0.1
+    serve = (rng.choice([0.0, 0.5, 1.0, 3.0], sites) if served
+             else np.zeros(sites))
+    free = rng.choice([0.0, 2.5e7, 1e9], pairs)
+    size = np.full(pairs, 5e7)
+    return bw, fetch, local, serve, free, size
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("served", [False, True])
+@pytest.mark.parametrize("sites,pairs", [(500, 1250), (1100, 300), (20, 77),
+                                         (3, 0)])
+def test_cuda_strategy_plan_matches_plain_and_oracle(sites, pairs, served):
+    """strategy_plan on the card (grid_500_evict burst shape; many sites;
+    fewer sites than the kernel's site groups; no pair): bit-equal to its
+    plain version and to the float64 oracle."""
+    dev = _card()
+    args = _plan_inputs(sites + pairs, sites, pairs, served)
+    t = [torch.tensor(a, device=dev) for a in args]
+    ks, kf = strategy_plan_kernel(*t)
+    ps, pf = strategy_plan_ref(*t)
+    assert torch.equal(ks, ps) and torch.equal(kf, pf)
+    if pairs:
+        want = oracle_plan(*args)
+        got = [ks[0], ks[1], kf[0], kf[1], kf[2]]
+        for w, g in zip(want, got):
+            assert np.array_equal(w, g.cpu().numpy().astype(np.float64))
+
+
+def _st_inputs(seed: int, sites: int, files: int, jobs: int):
+    rng = np.random.default_rng(seed)
+    bw = rng.choice([0.0, 6.25e5, 1.25e6, 1.25e8], (sites, sites))
+    presence = rng.random((sites, files)) < 0.05
+    online = rng.random(sites) < 0.9
+    fetch = presence & online[:, None]
+    sizes = rng.choice([5e8, 1e9, 1.7e9], files)
+    required = rng.random((jobs, files)) < 0.02
+    rel = rng.integers(0, 40, sites) * 37.5
+    return bw, fetch, presence, sizes, required, rel, online
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sites,files,jobs", [(52, 100, 50), (500, 600, 50),
+                                              (52, 0, 5)])
+def test_cuda_st_cost_matches_plain_and_oracle(sites, files, jobs):
+    """st_cost on the card (bulk_shortest and the 500-site union shape;
+    an empty file axis): bit-equal to its plain version and the oracle,
+    infs in the same places."""
+    dev = _card()
+    args = _st_inputs(sites * files + jobs, sites, files, jobs)
+    t = [torch.tensor(a, device=dev) for a in args]
+    got = st_cost_kernel(*t)
+    assert torch.equal(got, st_cost_ref(*t))
+    assert np.array_equal(got.cpu().numpy(), oracle_st_cost(*args))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["cost", "plain"])
+@pytest.mark.parametrize("sites,files", [(52, 100), (500, 1000)])
+def test_cuda_value_score_matches_plain_and_oracle(sites, files, mode):
+    """value_score on the card (economy_starved and the 500-site shape):
+    bit-equal to its plain version and the oracle."""
+    dev = _card()
+    rng = np.random.default_rng(sites + files)
+    demand = rng.random((sites, files)) * rng.choice([0.0, 1.0, 9.0],
+                                                     (sites, files))
+    sizes = rng.choice([1e9, 2e9], files)
+    presence = rng.random((sites, files)) < 0.03
+    bw = rng.choice([0.0, 1.25e6, 1.25e8], (sites, sites))
+    t = [torch.tensor(a, device=dev) for a in (demand, sizes, presence, bw)]
+    got = value_score_kernel(*t, mode=mode)
+    assert torch.equal(got, value_score_ref(*t, mode=mode))
+    want = oracle_value(demand, sizes, presence, bw, mode=mode)
+    assert np.array_equal(got.cpu().numpy(), want)

@@ -1,6 +1,7 @@
 """What the port carries over from the reference beside the engine:
 configuration and scenario state, the entry points, and the features
-that raise until their slice is ported."""
+that raise until their slice is ported (telemetry, the sanitizer, churn
+injection)."""
 
 import dataclasses
 import json
@@ -48,10 +49,6 @@ def _sim(**kw):
 @pytest.mark.parametrize("kw,match", [
     (dict(obs="report"), "telemetry"),
     (dict(sanitize=True), "sanitizer"),
-    (dict(econ_interval=900.0), "economy"),
-    (dict(strategy="economic"), "economy"),
-    (dict(strategy="predictive"), "economy"),
-    (dict(strategy_mode="batch"), "strategy_plan"),
 ])
 def test_unported_features_raise(kw, match):
     with pytest.raises(NotImplementedError, match=match):
