@@ -6,7 +6,7 @@
 Phases, each raising on failure (the script then exits non-zero):
 
 1. the card: its name and power limit (``nvidia-smi``);
-2. build all five CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc``
+2. build all seven CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc``
    each, in parallel);
 3. kernel parity at the main path's shapes — 16,384 slots, depth 3, the
    555 links of the 500-site grid, 679 and 13,528 dirty slots (the mean and
@@ -35,7 +35,25 @@ Phases, each raising on failure (the script then exits non-zero):
    ``economy_starved`` at seed 0 and ``hotset_drift`` under the
    ``predictive`` strategy. All four metrics must equal between the card
    and the CPU and equal the reference's (``REFERENCE``), and each path
-   must launch its kernels (``PATH_KERNELS``).
+   must launch its kernels (``PATH_KERNELS``);
+8. the serving path's kernels at its shapes (``ATTN_CASES``, ``SCAN_CASES``):
+   ``flash_attention`` for the gemma3-1b prefill (B 4, H 4, KV 1, S 1,024,
+   hd 256; global, local, float32 and softcap forms) and decode (one query
+   against the 1,040-slot cache), ``selective_scan`` for the falcon-mamba-7b
+   prefill (Bz 4, S 1,024, Di 8,192, N 16) and decode (S 1 from a state),
+   each against its plain version within ``TOL`` (ten times for the scan),
+   with device, wrapper, plain and ``scaled_dot_product_attention`` times
+   beside the bound;
+9. serving (``SERVE``): ``repro_torch.launch.serve`` at full width for
+   gemma3-1b and falcon-mamba-7b — seeded weights, the two-pod router, 4
+   requests of 1,024-token prompts, 16 new tokens — on the kernels, then the
+   same model and inputs on the plain route (``backend="plain"``) on the
+   card, then both routes again with the weights in float32. Each kernel
+   must launch once per layer per step (``n_layers`` x 17) on the bf16
+   kernel run, the plain route never. The float32 prefill logits must agree
+   within ``SERVE_TOL_F32``; the bf16 ones within twice the bf16 noise (how
+   far the plain route's bf16 logits lie from its float32 ones); the greedy
+   tokens by ``greedy_agreement``'s margin rule at each tolerance.
 
 The launch counts of each path are reset just before it runs and read just
 after. The second-to-last line is the kernel summary as JSON; the last line
@@ -91,8 +109,32 @@ REFERENCE = {
         "avg_job_time": 123720.46816159964, "makespan": 165600.0,
         "avg_inter_comms": 3.112, "completed_jobs": 500},
 }
+#: The serving path's kernel shapes (phase 8): gemma3-1b's attention layers
+#: (B, H, KV, hd, S) in prefill and decode, falcon-mamba-7b's scan.
+ATTN_CASES = (
+    # name, dtype, Sq, window, softcap, q_offset, kv_len
+    ("prefill global bf16", "bfloat16", 1024, None, None, 0, None),
+    ("prefill local bf16", "bfloat16", 1024, 512, None, 0, None),
+    ("prefill global f32", "float32", 1024, None, None, 0, None),
+    ("prefill softcap bf16", "bfloat16", 1024, None, 50.0, 0, None),
+    ("decode global bf16", "bfloat16", 1, None, None, 1039, 1040),
+    ("decode local bf16", "bfloat16", 1, 512, None, 1039, 1040),
+)
+GEMMA_B, GEMMA_H, GEMMA_KV, GEMMA_HD, CACHE_LEN = 4, 4, 1, 256, 1040
+SCAN_CASES = (("prefill f32", 1024), ("decode S=1 f32", 1))
+MAMBA_BZ, MAMBA_DI, MAMBA_N = 4, 8192, 16
+TOL = {"bfloat16": 2e-2, "float32": 2e-5}   # tests/test_kernels.py
+#: Serving runs (phase 9): arch, its kernel, requests, prompt, new tokens.
+SERVE = (("gemma3-1b", "flash_attention"), ("falcon-mamba-7b",
+                                            "selective_scan"))
+SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW = 4, 1024, 16
+#: kernel route against plain route with float32 weights, at full depth
+#: (the bf16 runs are held to twice the bf16 noise measured in the run)
+SERVE_TOL_F32 = 1e-3
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
 FP64_FLOPS = 34e12            # H100 SXM float64, outside the tensor cores
+BF16_FLOPS = 989e12           # H100 SXM bf16, dense tensor cores
+FP32_FLOPS = 67e12            # H100 SXM float32, outside the tensor cores
 ROUNDS, CALLS = 20, 50        # timing: rounds of back-to-back calls
 
 
@@ -606,6 +648,234 @@ def phase_paths(dev) -> dict:
     return launches
 
 
+def _model_record(name, kern, plain, library, err, tol, bytes_, flops,
+                  peak, plain_calls) -> dict:
+    """Times of one kernel case beside its bound; prints one line."""
+    b, f = bytes_ / HBM_BYTES_PER_S, flops / peak
+    r = dict(shape=name, max_abs_err=err, tol=tol, ms=device_ms(kern),
+             plain_ms=device_ms(plain, rounds=3, calls=plain_calls),
+             wrapper_ms=wrapper_ms(kern),
+             plain_wrapper_ms=wrapper_ms(plain, rounds=3, calls=plain_calls,
+                                         warmup=1),
+             # eager, CUDA events around back-to-back calls: cuDNN's
+             # attention allocates inside the call, which graph capture
+             # refuses
+             library_ms=None if library is None else wrapper_ms(library),
+             bytes=bytes_, flops=flops, bound_ms=1e3 * max(b, f),
+             bound_by="bytes" if b >= f else "operations")
+    lib = ("none" if library is None
+           else f"{1e3 * r['library_ms']!r}us")
+    print(f"[model-kernels] {name}: max_abs_err={err!r} (tol {tol}) device: "
+          f"kernel={1e3 * r['ms']!r}us plain={1e3 * r['plain_ms']!r}us; "
+          f"through the wrapper: kernel={1e3 * r['wrapper_ms']!r}us "
+          f"plain={1e3 * r['plain_wrapper_ms']!r}us; library={lib}; "
+          f"bytes={bytes_} flops={flops} bound={1e3 * r['bound_ms']!r}us "
+          f"({r['bound_by']})")
+    return r
+
+
+def _close_or_raise(name: str, got, want, tol: float) -> float:
+    """``got`` within ``tol`` (atol and rtol) of ``want``; returns the max
+    abs error."""
+    import torch
+
+    got, want = got.float(), want.float()
+    err = float((got - want).abs().max())
+    if not torch.allclose(got, want, atol=tol, rtol=tol):
+        raise AssertionError(f"{name}: differs from the plain version beyond "
+                             f"tol {tol} (max abs err {err})")
+    return err
+
+
+def phase_model_kernels(dev) -> dict:
+    """Parity and timing of flash_attention and selective_scan at the
+    serving path's shapes; returns per-kernel records (one per case)."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import (attention_mask,
+                                                     flash_attention_kernel,
+                                                     flash_attention_ref)
+    from repro_torch.kernels.selective_scan import (selective_scan_kernel,
+                                                    selective_scan_ref)
+
+    out: dict = {}
+    rng = np.random.default_rng(13)
+    B, H, KV, hd = GEMMA_B, GEMMA_H, GEMMA_KV, GEMMA_HD
+    for name, dtype, sq, window, cap, q_offset, kv_len in ATTN_CASES:
+        dt = getattr(torch, dtype)
+        skv = CACHE_LEN if kv_len else sq
+        # the model's layout: (B, S, heads, hd) storage seen as (B, heads,
+        # S, hd), the decode keys a 1,040-slot cache
+        t = lambda *s: torch.tensor(  # noqa: E731
+            rng.standard_normal(s, np.float32), device=dev).to(dt)
+        q = t(B, sq, H, hd).transpose(1, 2)
+        k, v = t(B, skv, KV, hd).transpose(1, 2), t(B, skv, KV, hd).transpose(1, 2)
+        kw = dict(causal=True, window=window, softcap=cap, q_offset=q_offset,
+                  kv_len=kv_len)
+        err = _close_or_raise(f"flash_attention {name}",
+                              flash_attention_kernel(q, k, v, **kw),
+                              flash_attention_ref(q, k, v, **kw), TOL[dtype])
+        mask = attention_mask(sq, skv, causal=True, window=window,
+                              q_offset=q_offset, kv_len=kv_len, device=dev)
+        pairs = int(mask.sum())
+        needed = int(mask.any(0).sum())          # keys some query reads
+        size = q.element_size()
+        bytes_ = size * (2 * B * H * sq * hd + 2 * B * KV * needed * hd)
+        flops = 4 * B * H * hd * pairs
+        library = None
+        if cap is None:     # no PyTorch call takes a softcap
+            qc, kc, vc = (x.contiguous() for x in (q, k, v))
+            if window is None and kv_len is None:
+                library = lambda: F.scaled_dot_product_attention(  # noqa
+                    qc, kc, vc, is_causal=True, enable_gqa=True)
+            else:
+                library = lambda: F.scaled_dot_product_attention(  # noqa
+                    qc, kc, vc, attn_mask=mask, enable_gqa=True)
+        out.setdefault("flash_attention", []).append(_model_record(
+            f"flash_attention {name} B={B} H={H} KV={KV} Sq={sq} Skv={skv} "
+            f"hd={hd}", lambda: flash_attention_kernel(q, k, v, **kw),
+            lambda: flash_attention_ref(q, k, v, **kw), library, err,
+            TOL[dtype], bytes_, flops,
+            BF16_FLOPS if dt == torch.bfloat16 else FP32_FLOPS, 10))
+    Bz, Di, N = MAMBA_BZ, MAMBA_DI, MAMBA_N
+    for name, S in SCAN_CASES:
+        n = lambda *s: rng.standard_normal(s, np.float32)  # noqa: E731
+        t = lambda a: torch.tensor(a, device=dev)  # noqa: E731
+        # the model hands the scan float32 streams; h0 is a cached state
+        x, B_, C_ = t(n(Bz, S, Di)), t(n(Bz, S, N)), t(n(Bz, S, N))
+        dts = t((np.log1p(np.exp(n(Bz, S, Di))) * 0.1).astype(np.float32))
+        A, D, h0 = t(-np.exp(n(Di, N) * 0.3)), t(n(Di)), t(n(Bz, Di, N))
+        args = (x, dts, B_, C_, A, D, h0)
+        (ky, kh), (py, ph) = selective_scan_kernel(*args), selective_scan_ref(*args)
+        tol = 10 * TOL["float32"]
+        err = max(_close_or_raise(f"selective_scan {name} y", ky, py, tol),
+                  _close_or_raise(f"selective_scan {name} h", kh, ph, tol))
+        # x, dt, y per (b, t, d); B, C per (b, t, n); A, h0, h_last per
+        # (d, n); an exp, three multiplies and two adds per (b, t, d, n),
+        # three more ops per (b, t, d)
+        bytes_ = 4 * (3 * Bz * S * Di + 2 * Bz * S * N + Di * N + Di
+                      + 2 * Bz * Di * N)
+        flops = 7 * Bz * S * Di * N + 3 * Bz * S * Di
+        out.setdefault("selective_scan", []).append(_model_record(
+            f"selective_scan {name} Bz={Bz} S={S} Di={Di} N={N}",
+            lambda: selective_scan_kernel(*args),
+            lambda: selective_scan_ref(*args), None, err, tol, bytes_, flops,
+            FP32_FLOPS, 1))
+    return out
+
+
+def _serve(arch, cfg, params, backend: str, label: str) -> dict:
+    """One full-width serving run on ``params``; prints its numbers."""
+    from repro_torch.launch.serve import serve
+
+    r = serve(cfg, params, n_requests=SERVE_REQUESTS, prompt_len=SERVE_PROMPT,
+              new_tokens=SERVE_NEW, backend=backend)
+    print(f"[serve] {arch} {label} requests={SERVE_REQUESTS} "
+          f"prompt={SERVE_PROMPT} new={SERVE_NEW} "
+          f"prefill_ms={r['prefill_ms']!r} "
+          f"decode_ms_per_token={r['decode_ms_per_token']!r} "
+          f"tokens_per_s={r['tokens_per_s']!r} peak_bytes={r['peak_bytes']} "
+          f"sites={r['sites']} inter_comms={r['inter_comms']} "
+          f"wan_bytes={r['wan_bytes']!r} lan_bytes={r['lan_bytes']!r}")
+    return r
+
+
+def phase_serve(dev) -> dict:
+    """Both models at full width through the router and the engine, on the
+    kernels and on the plain route, in bf16 as served and with the same
+    weights in float32; returns the bf16 kernel runs' records."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _cuda
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import model as M
+    from repro_torch.serve.engine import greedy_agreement
+
+    def to_f32(tree):
+        if isinstance(tree, dict):
+            return {k: to_f32(v) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [to_f32(v) for v in tree]
+        return tree.float()
+
+    out = {}
+    for arch, kernel in SERVE:
+        cfg = get_config(arch)
+        t0 = time.perf_counter()
+        params = M.init_params(cfg, seed=0, device=dev)
+        torch.cuda.synchronize(dev)
+        init_s = time.perf_counter() - t0
+        for backend in ("auto", "plain"):          # warm-up, uncounted
+            serve(cfg, params, n_requests=1, prompt_len=8, new_tokens=1,
+                  backend=backend)
+        _cuda.reset_launches()                     # the main path
+        k = _serve(arch, cfg, params, "auto", "bf16 kernels")
+        launches = dict(_cuda.LAUNCHES)
+        _cuda.reset_launches()
+        p = _serve(arch, cfg, params, "plain", "bf16 plain")
+        plain_launches = dict(_cuda.LAUNCHES)
+        want = cfg.n_layers * (1 + SERVE_NEW)
+        others = {n: c for n, c in launches.items() if n != kernel and c}
+        if launches[kernel] != want or others or any(plain_launches.values()):
+            raise AssertionError(
+                f"{arch}: launches {launches} (want {kernel} = {want} and no "
+                f"other), plain route {plain_launches} (want none)")
+        logits = k["logits"]
+        if logits.shape != (SERVE_REQUESTS, SERVE_NEW, cfg.vocab) or not bool(
+                torch.isfinite(logits).all()):
+            raise AssertionError(f"{arch}: logits {tuple(logits.shape)} not "
+                                 "finite or of the wrong shape")
+        if k["sites"] != p["sites"] or k["tokens"].shape != (SERVE_REQUESTS,
+                                                             SERVE_NEW):
+            raise AssertionError(f"{arch}: sites or token shapes differ")
+        params32 = to_f32(params)
+        k32 = _serve(arch, cfg, params32, "auto", "f32 kernels")
+        p32 = _serve(arch, cfg, params32, "plain", "f32 plain")
+        del params32
+        # float32: a wrong mask, index or layout moves logits by ~1e-1;
+        # float32 rounding over the depth stays far below SERVE_TOL_F32
+        err32 = _close_or_raise(f"{arch} f32 prefill logits",
+                                k32["logits"][:, 0], p32["logits"][:, 0],
+                                SERVE_TOL_F32)
+        held32 = greedy_agreement(k32["tokens"], p32["tokens"], p32["logits"],
+                                  atol=SERVE_TOL_F32, rtol=SERVE_TOL_F32)
+        # bf16 as served: the kernel route may differ from the plain route
+        # by twice what bf16 rounding moves the plain route off its float32
+        # result (the noise of the served dtype itself)
+        noise = float((p["logits"][:, 0] - p32["logits"][:, 0]).abs().max())
+        tol = 2 * noise
+        err = float((logits[:, 0] - p["logits"][:, 0]).abs().max())
+        if not err <= tol:
+            raise AssertionError(f"{arch} bf16 prefill logits: kernel route "
+                                 f"off the plain route by {err} > {tol} "
+                                 f"(2 x the bf16 noise {noise})")
+        held = greedy_agreement(k["tokens"], p["tokens"], p["logits"],
+                                atol=tol, rtol=0.0)
+        equal = int((k["tokens"] == p["tokens"]).sum())
+        print(f"[serve] {arch} params={cfg.param_count()} init_s={init_s!r} "
+              f"f32 prefill logits max_abs_err={err32!r} (tol "
+              f"{SERVE_TOL_F32}), tokens held={held32}; bf16 prefill logits "
+              f"max_abs_err={err!r} (tol {tol!r} = 2 x bf16 noise "
+              f"{noise!r}), tokens held={held}, equal={equal}/"
+              f"{k['tokens'].size}; {kernel} launches={launches[kernel]} "
+              f"(= {cfg.n_layers} layers x {1 + SERVE_NEW} steps)")
+        out[arch] = dict(kernel=kernel, launches=launches[kernel],
+                         logit_err=err, logit_tol=tol, logit_err_f32=err32,
+                         held=held, held_f32=held32,
+                         **{m: k[m] for m in ("prefill_ms",
+                                              "decode_ms_per_token",
+                                              "tokens_per_s", "peak_bytes")},
+                         plain={m: p[m] for m in ("prefill_ms",
+                                                  "decode_ms_per_token",
+                                                  "tokens_per_s")})
+        del params, k, p, k32, p32, logits
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -639,6 +909,10 @@ def main() -> int:
                for name in ("strategy_plan", "st_cost", "value_score")}
     for name, counts in by_path.items():
         launches[name] = sum(counts.values())
+    model = phase_model_kernels(dev)
+    served = phase_serve(dev)
+    for arch, r in served.items():
+        launches[r["kernel"]] = r["launches"]
 
     sources = {"event_engine": ("src/repro_torch/csrc/event_engine.cu",
                                 "src/repro/kernels/event_engine/kernel.py:39"),
@@ -650,7 +924,13 @@ def main() -> int:
                "st_cost": ("src/repro_torch/csrc/st_cost.cu",
                            "src/repro/kernels/st_cost/kernel.py:44"),
                "value_score": ("src/repro_torch/csrc/value_score.cu",
-                               "src/repro/kernels/value_score/kernel.py:38")}
+                               "src/repro/kernels/value_score/kernel.py:38"),
+               "flash_attention": (
+                   "src/repro_torch/csrc/flash_attention.cu",
+                   "src/repro/kernels/flash_attention/kernel.py:29"),
+               "selective_scan": (
+                   "src/repro_torch/csrc/selective_scan.cu",
+                   "src/repro/kernels/selective_scan/kernel.py:29")}
     summary = []
     # net_rerate's own path is phase 4; the slice-2 paths run it too
     rerate_by_path = {"golden": launches["net_rerate"],
@@ -689,6 +969,27 @@ def main() -> int:
             "other_shapes": [{k: r[k] for k in
                               ("shape", "ms", "plain_ms", "wrapper_ms",
                                "bound_ms", "bound_by")} for r in rows[1:]],
+        })
+    # the first case of each is its path's main shape: the gemma3-1b
+    # global-layer prefill in bf16, the falcon-mamba-7b prefill
+    for name in ("flash_attention", "selective_scan"):
+        rows = model[name]
+        row = rows[0]
+        summary.append({
+            "name": name, "route": "cuda", "source": sources[name][0],
+            "replaces": sources[name][1], "launches": launches[name],
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"], "wrapper_ms": row["wrapper_ms"],
+            "plain_wrapper_ms": row["plain_wrapper_ms"],
+            "shape": row["shape"],
+            "other_shapes": [{k: r[k] for k in
+                              ("shape", "max_abs_err", "ms", "plain_ms",
+                               "wrapper_ms", "library_ms", "bound_ms",
+                               "bound_by")} for r in rows[1:]],
+            "serving": {a: {k: v for k, v in r.items() if k != "kernel"}
+                        for a, r in served.items() if r["kernel"] == name},
         })
     print(smi)
     print(json.dumps({"kernels": summary}))

@@ -1,7 +1,10 @@
 """Build, load and count the hand-written CUDA kernels.
 
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` into its own shared library
-with a plain C interface, bound through :mod:`ctypes`. Libraries are built
+with a plain C interface, bound through :mod:`ctypes`. The five simulation
+kernels are held bit-equal to float64 oracles and build with
+``-fmad=false`` (no FMA contraction); the two model kernels are held to a
+tolerance and build without it (:func:`nvcc_flags`). Libraries are built
 at first use (every source in parallel, one ``nvcc`` each) into
 ``build/kernels/`` at the repository root, under a file name that carries a
 hash of the sources and flags, so an edited source is never served from a
@@ -29,16 +32,19 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent.parent / "build" / "kernels"
-KERNELS = ("event_engine", "net_rerate", "strategy_plan", "st_cost",
-           "value_score")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
+#: the simulation kernels, bit-exact: built with ``-fmad=false``
+EXACT_KERNELS = ("event_engine", "net_rerate", "strategy_plan", "st_cost",
+                 "value_score")
+#: the model kernels of the serving path, held to a tolerance
+MODEL_KERNELS = ("flash_attention", "selective_scan")
+KERNELS = EXACT_KERNELS + MODEL_KERNELS
+_BASE_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 LAUNCHES: dict[str, int] = {name: 0 for name in KERNELS}
 
-_VP, _I64, _F64, _INT = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_double,
-                         ctypes.c_int)
+_VP, _I64, _F64, _F32, _INT = (ctypes.c_void_p, ctypes.c_int64,
+                               ctypes.c_double, ctypes.c_float, ctypes.c_int)
 #: C signature of each library's entry point (see the .cu sources)
 _SIGNATURES = {
     "event_engine": ("event_engine_flush",
@@ -55,6 +61,13 @@ _SIGNATURES = {
                  _VP, _VP, _INT]),
     "value_score": ("value_score",
                     [_VP, _VP, _VP, _VP, _I64, _I64, _INT, _VP, _VP, _INT]),
+    "flash_attention": ("flash_attention",
+                        [_VP, _VP, _VP, _VP, _VP, _I64, _I64, _I64, _I64,
+                         _I64, _I64, _I64, _INT, _INT, _I64, _F32, _I64, _F32,
+                         _VP, _INT]),
+    "selective_scan": ("selective_scan",
+                       [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I64,
+                        _I64, _I64, _I64, _INT, _VP, _INT]),
 }
 
 _lock = threading.Lock()
@@ -80,8 +93,14 @@ def _nvcc() -> str:
     return path
 
 
+def nvcc_flags(name: str) -> tuple[str, ...]:
+    """The ``nvcc`` flags of library ``name``: ``-fmad=false`` for the
+    bit-exact simulation kernels only."""
+    return _BASE_FLAGS + (("-fmad=false",) if name in EXACT_KERNELS else ())
+
+
 def _library_path(name: str) -> Path:
-    h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha1(" ".join(nvcc_flags(name)).encode())
     for src in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
         h.update(src.name.encode())
         h.update(src.read_bytes())
@@ -102,7 +121,7 @@ def build(names=KERNELS) -> float:
     procs = {}
     for name, out in todo.items():
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+        cmd = [nvcc, *nvcc_flags(name), "-I", str(CSRC), "-o", str(tmp),
                str(CSRC / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),

@@ -1,0 +1,77 @@
+"""Launch of the CUDA flash attention kernel (``csrc/flash_attention.cu``)."""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .. import _cuda
+
+#: head dims the kernel is compiled for (those of the repo's configs/tests)
+HEAD_DIMS = (16, 32, 64, 128, 256)
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError("flash_attention: want q (B, H, Sq, hd) and k, v "
+                         f"(B, KV, Skv, hd), got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    B, H, _, hd = q.shape
+    if k.shape[0] != B or k.shape[3] != hd or H % k.shape[1]:
+        raise ValueError(f"flash_attention: k/v {tuple(k.shape)} do not fit "
+                         f"q {tuple(q.shape)} (batch, head dim, H % KV)")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: head dim {hd} not in {HEAD_DIMS}")
+    if q.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"flash_attention: dtype {q.dtype} (want bfloat16 "
+                         "or float32)")
+    dev = q.device
+    if dev.type != "cuda":
+        raise ValueError(f"flash_attention: the CUDA kernel takes CUDA "
+                         f"tensors, got {dev}")
+    vec = 16 // q.element_size()
+    for label, t in (("q", q), ("k", k), ("v", v)):
+        if t.device != dev or t.dtype != q.dtype:
+            raise ValueError(f"flash_attention: {label} must be {q.dtype} on "
+                             f"{dev}")
+        # rows are read 16 bytes at a time: unit stride along hd, 16-byte
+        # aligned rows
+        if t.stride(3) != 1 or t.data_ptr() % 16 or any(
+                s % vec for s in t.stride()[:3]):
+            raise ValueError(f"flash_attention: {label} needs a unit stride "
+                             "along hd and 16-byte aligned rows, got strides "
+                             f"{t.stride()}")
+
+
+def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           *, causal: bool = True, window: int | None = None,
+                           softcap: float | None = None, q_offset: int = 0,
+                           kv_len: int | None = None) -> torch.Tensor:
+    """Same contract as :func:`.ref.flash_attention_ref`, on CUDA tensors,
+    launched on the current stream (no synchronisation). q, k and v may be
+    strided views (the model passes ``(B, S, H, hd)`` storage seen as
+    ``(B, H, S, hd)``); the result is a ``(B, H, Sq, hd)`` view of a
+    ``(B, Sq, H, hd)`` tensor, so the model's head merge is free."""
+    _check(q, k, v)
+    if window is not None and window < 1:
+        raise ValueError(f"flash_attention: window {window} < 1")
+    if softcap is not None and not softcap > 0:
+        raise ValueError(f"flash_attention: softcap {softcap} <= 0")
+    B, H, Sq, hd = q.shape
+    KV, Skv = k.shape[1], k.shape[2]
+    dev = q.device
+    out = torch.empty((B, Sq, H, hd), dtype=q.dtype, device=dev).transpose(1, 2)
+    kend = Skv if kv_len is None else max(0, min(Skv, kv_len))
+    if out.numel() == 0:
+        return out
+    strides = (ctypes.c_int64 * 12)(*q.stride()[:3], *k.stride()[:3],
+                                    *v.stride()[:3], *out.stride()[:3])
+    err = _cuda.entry_point("flash_attention")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), strides,
+        B, H, KV, Sq, Skv, kend, hd, int(q.dtype == torch.bfloat16),
+        int(causal), 0 if window is None else window,
+        0.0 if softcap is None else softcap, q_offset, hd ** -0.5,
+        _cuda.stream(dev), dev.index)
+    _cuda.check("flash_attention", err)
+    return out

@@ -1,0 +1,6 @@
+from .kernel import selective_scan_kernel
+from .ops import BACKENDS, selective_scan
+from .ref import selective_scan_ref
+
+__all__ = ["BACKENDS", "selective_scan", "selective_scan_kernel",
+           "selective_scan_ref"]

@@ -1,0 +1,34 @@
+"""Plain PyTorch version of the selective scan (``csrc/selective_scan.cu``).
+
+The counterpart of ``selective_scan_ref``
+(``src/repro/kernels/selective_scan/ref.py:9``): a sequential loop over
+time in float32, the state ``h`` (Bz, Di, N) carried from step to step,
+
+    h = exp(dt * A) * h + (dt * x) * B_t;   y_t = h . C_t + D * x_t
+
+and ``y`` cast back to x's dtype. The CPU tests and the ``backend="plain"``
+route run it; the CUDA kernel walks the same recurrence, one thread per
+(batch, channel).
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def selective_scan_ref(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
+                       C: torch.Tensor, A: torch.Tensor, D: torch.Tensor,
+                       h0: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """x, dt: (Bz, S, Di); B, C: (Bz, S, N); A: (Di, N); D: (Di,); h0:
+    (Bz, Di, N). Returns (y (Bz, S, Di) in x's dtype, h_last (Bz, Di, N)
+    float32)."""
+    xf, dtf, bf, cf = x.float(), dt.float(), B.float(), C.float()
+    af, df = A.float(), D.float()
+    h = h0.float()
+    ys = []
+    for t in range(x.shape[1]):
+        da = torch.exp(dtf[:, t, :, None] * af)
+        h = da * h + (dtf[:, t] * xf[:, t])[..., None] * bf[:, t, None, :]
+        ys.append((h * cf[:, t, None, :]).sum(-1) + df * xf[:, t])
+    y = torch.stack(ys, 1) if ys else torch.empty_like(xf)
+    return y.to(x.dtype), h

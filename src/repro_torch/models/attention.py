@@ -1,0 +1,43 @@
+"""GQA attention of the serving path, through the flash attention op.
+
+Both functions take the model's layout — q (B, Sq, H, hd), k and v
+(B, Skv, KV, hd), H = G * KV — and hand the op ``(B, H, S, hd)`` views of
+the same storage: no transpose is copied, the CUDA kernel reads through
+strides. On CPU tensors the op runs its plain version; on CUDA tensors the
+kernel (``backend`` overrides, see
+:data:`repro_torch.kernels.flash_attention.BACKENDS`).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..kernels.flash_attention import flash_attention
+
+
+def attention_blockwise(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        window: int | None = None,
+                        softcap: float | None = None, q_offset: int = 0,
+                        kv_len: int | None = None,
+                        backend: str = "auto") -> torch.Tensor:
+    """Causal prefill attention (the reference's online-softmax
+    ``attention_blockwise``). Returns (B, Sq, H, hd)."""
+    o = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                        v.transpose(1, 2), causal=True, window=window,
+                        softcap=softcap, q_offset=q_offset, kv_len=kv_len,
+                        backend=backend)
+    return o.transpose(1, 2)
+
+
+def attention_decode(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, *, cache_len: int,
+                     window: int | None = None, softcap: float | None = None,
+                     backend: str = "auto") -> torch.Tensor:
+    """One-token decode: q (B, 1, H, hd) against caches (B, max_len, KV,
+    hd). The new token sits at position ``cache_len`` and its K/V must
+    already be written at that slot; keys past it are masked
+    (``q_offset=cache_len``, ``kv_len=cache_len + 1``)."""
+    return attention_blockwise(q, k_cache, v_cache, window=window,
+                               softcap=softcap,
+                               q_offset=cache_len, kv_len=cache_len + 1,
+                               backend=backend)

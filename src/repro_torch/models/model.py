@@ -1,0 +1,169 @@
+"""Model facade of the serving path, one entry point per step.
+
+  init_params(cfg, seed=, device=)             -> params
+  init_caches(cfg, batch, max_len, device=, dtype=) -> caches
+  prefill(cfg, params, tokens, caches=)        -> (last_logits, caches)
+  decode_step(cfg, params, caches, token, pos) -> (logits, caches)
+  params_from_jax(cfg, tree)                   -> params
+
+Decoder-only models with ``attn``, ``attn_local`` and ``mamba1`` blocks.
+Training, the encoder-decoder and VLM front ends and the other block kinds
+raise ``NotImplementedError`` (ROADMAP queue 1). On one card there is no
+activation sharding, so the reference's ``shardctx.anchor_batch`` has no
+counterpart.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..configs.base import ArchConfig
+from ..device import resolve_device
+from .common import softcap
+from .transformer import check_config, init_lm_caches, init_lm_params, lm_apply
+
+
+def init_params(cfg: ArchConfig, *, seed: int = 0,
+                device: "str | torch.device" = "cuda") -> dict:
+    """Random parameters from ``seed`` (a ``torch.Generator`` on
+    ``device``), in the reference's layout and dtypes: bf16 matrices,
+    float32 norms and SSM parameters."""
+    check_config(cfg)
+    gen = torch.Generator(device=resolve_device(device)).manual_seed(seed)
+    return init_lm_params(cfg, gen)
+
+
+def init_caches(cfg: ArchConfig, batch: int, max_len: int, *,
+                device: "str | torch.device" = "cuda",
+                dtype: torch.dtype = torch.bfloat16) -> dict:
+    return init_lm_caches(cfg, batch, max_len, device=resolve_device(device),
+                          dtype=dtype)
+
+
+def _scaled(cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
+    """Gemma's sqrt(d_model) embedding scale. The reference rounds the
+    scale to the activation dtype first (sqrt(1152) becomes 34.0 in bf16,
+    not 33.94); a Python float times a bf16 tensor would not."""
+    if not cfg.embed_scale:
+        return x
+    return x * float(torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype))
+
+
+def _embed_tokens(cfg: ArchConfig, params: dict,
+                  tokens: torch.Tensor) -> torch.Tensor:
+    return _scaled(cfg, params["embed"][tokens])
+
+
+def _lm_logits(cfg: ArchConfig, params: dict,
+               hidden: torch.Tensor) -> torch.Tensor:
+    """The product runs in the weights' dtype and is cast to float32
+    afterwards, as in the reference (with a 262,144-token vocab the bf16
+    rounding makes ties; ``argmax`` takes the first)."""
+    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    logits = (hidden @ head).float()
+    if cfg.final_softcap is not None:
+        logits = softcap(logits, cfg.final_softcap)
+    return logits
+
+
+def prefill(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *,
+            caches: dict, backend: str = "auto") -> tuple[torch.Tensor, dict]:
+    """Full-prompt forward. tokens: (B, S) int. Writes every layer's
+    K/V or state into ``caches`` (:func:`init_caches`, at least S long)
+    and returns the last position's logits (B, 1, V) float32."""
+    tokens = tokens.to(params["embed"].device, torch.int64)
+    x = _embed_tokens(cfg, params, tokens)
+    hidden, caches = lm_apply(cfg, params, x, mode="prefill", caches=caches,
+                              backend=backend)
+    return _lm_logits(cfg, params, hidden[:, -1:]), caches
+
+
+def decode_step(cfg: ArchConfig, params: dict, caches: dict,
+                token: torch.Tensor, pos: int, *,
+                backend: str = "auto") -> tuple[torch.Tensor, dict]:
+    """token: (B, 1) int; pos: the current cache length (the token's
+    position). Returns (logits (B, 1, V) float32, caches)."""
+    token = token.to(params["embed"].device, torch.int64)
+    x = _embed_tokens(cfg, params, token)
+    hidden, caches = lm_apply(cfg, params, x, mode="decode", caches=caches,
+                              pos=pos, backend=backend)
+    return _lm_logits(cfg, params, hidden), caches
+
+
+# --------------------------------------------------------------------------
+# parameters from the reference
+# --------------------------------------------------------------------------
+
+def _leaf(a, device: torch.device) -> torch.Tensor:
+    a = np.array(a, order="C")          # a writable, contiguous copy
+    if a.dtype.name == "bfloat16":      # ml_dtypes' bf16: carry the bits
+        return torch.from_numpy(a.view(np.uint16)).view(
+            torch.bfloat16).to(device)
+    return torch.from_numpy(a).to(device)
+
+
+def _map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_map(fn, v) for v in tree]
+    return fn(tree)
+
+
+def params_from_jax(cfg: ArchConfig, tree: dict, *,
+                    device: "str | torch.device" = "cpu") -> dict:
+    """The reference's parameter pytree (``repro.models.model
+    .init_params``), its leaves given as numpy arrays, as the port's
+    parameters. The stacked ``groups`` leaves (leading ``n_groups`` axis)
+    are split per group; bf16 leaves (``ml_dtypes`` arrays, which
+    ``torch.from_numpy`` refuses) are carried bit for bit through
+    ``uint16``."""
+    check_config(cfg)
+    dev = resolve_device(device)
+    unknown = set(tree) - {"embed", "groups", "rest", "final_norm", "lm_head"}
+    if unknown:
+        raise NotImplementedError(f"parameters {sorted(unknown)} are not "
+                                  "ported to repro_torch yet (ROADMAP queue 1)")
+    conv = lambda a: _leaf(a, dev)  # noqa: E731
+    out = {"embed": conv(tree["embed"]),
+           "groups": [_map(lambda a, g=g: conv(np.asarray(a)[g]),
+                           tree["groups"]) for g in range(cfg.n_groups)],
+           "rest": [_map(conv, b) for b in tree["rest"]],
+           "final_norm": conv(tree["final_norm"])}
+    if "lm_head" in tree:
+        out["lm_head"] = conv(tree["lm_head"])
+    return out
+
+
+# --------------------------------------------------------------------------
+# analytic parameter counts
+# --------------------------------------------------------------------------
+
+def count_params_analytic(cfg: ArchConfig) -> int:
+    """Parameters of the blocks the port serves (the reference's count for
+    those configs)."""
+    check_config(cfg)
+    D, F, V = cfg.d_model, cfg.d_ff, cfg.vocab
+    hd = cfg.resolved_head_dim()
+    H, KV = cfg.n_heads, cfg.n_kv_heads
+    attn = D * H * hd * 2 + D * KV * hd * 2 + 2 * D + 3 * D * F
+    if cfg.qkv_bias:
+        attn += H * hd + 2 * KV * hd
+    total = 0
+    for kind in list(cfg.layer_pattern) * cfg.n_groups + list(
+            cfg.remainder_pattern):
+        if kind == "mamba1":
+            ssm = cfg.ssm
+            di = ssm.d_inner(D)
+            dtr = ssm.resolved_dt_rank(D)
+            N = ssm.state_dim
+            total += (D * 2 * di + di * ssm.conv_kernel + di
+                      + di * (dtr + 2 * N) + dtr * di + di + di * N + di
+                      + di * D + D)
+        else:
+            total += attn
+    total += V * D                       # embeddings
+    if not cfg.tie_embeddings:
+        total += D * V
+    return total + D                     # final norm

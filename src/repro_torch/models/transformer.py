@@ -1,0 +1,235 @@
+"""Decoder-only LM assembled from an ArchConfig.
+
+The layer stack is ``n_groups`` repeats of the config's group pattern (e.g.
+gemma3 = local x5, global) plus a remainder, run as a Python loop. The
+parameters keep the reference's layout with the stacked group axis
+unstacked: ``params["groups"][g][f"b{i}"]`` is block ``i`` of group ``g``,
+``params["rest"][i]`` block ``i`` of the remainder; the caches mirror it.
+
+Two modes share the block code:
+  * prefill: causal forward over the prompt, writing every layer's KV or
+    state into the caches;
+  * decode: one token against the caches (``pos`` = current length).
+
+The caches are updated in place (the reference returns new ones): an
+attention cache is allocated once at the serving length and each step
+writes its token's K/V at slot ``pos``.
+
+Blocks ``attn``, ``attn_local`` and ``mamba1`` are ported; ``mamba2``,
+``shared_attn`` and MoE feed-forward raise ``NotImplementedError`` (ROADMAP
+queue 1), as does training.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..configs.base import ArchConfig
+from .attention import attention_blockwise, attention_decode
+from .common import ACTS, normal_init, rms_norm, rope
+from .mamba import init_mamba1, mamba1_decode, mamba1_forward
+from .mlp import gated_mlp, init_gated_mlp
+
+ATTN_KINDS = ("attn", "attn_local")
+KINDS = ATTN_KINDS + ("mamba1",)
+MODES = ("prefill", "decode")
+
+
+def _not_ported(what: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported to repro_torch yet "
+                               "(ROADMAP queue 1)")
+
+
+def check_config(cfg: ArchConfig) -> None:
+    """Raise ``NotImplementedError`` for what the port does not serve."""
+    for kind in cfg.layer_pattern:
+        if kind not in KINDS:
+            raise _not_ported(f"block kind {kind!r}")
+    if cfg.moe is not None:
+        raise _not_ported("the MoE feed-forward")
+    if cfg.act not in ACTS:
+        raise _not_ported(f"act={cfg.act!r} (the plain GELU MLP)")
+    if cfg.enc_dec:
+        raise _not_ported("the encoder-decoder (whisper) path")
+    if cfg.vision_tokens:
+        raise _not_ported("the VLM front end")
+
+
+# --------------------------------------------------------------------------
+# per-block init
+# --------------------------------------------------------------------------
+
+def _init_attn_block(gen: torch.Generator, cfg: ArchConfig) -> dict:
+    D = cfg.d_model
+    hd = cfg.resolved_head_dim()
+    H, KV = cfg.n_heads, cfg.n_kv_heads
+    f32, bf16, dev = torch.float32, torch.bfloat16, gen.device
+    p = {
+        "ln1": torch.zeros((D,), dtype=f32, device=dev),
+        "wq": normal_init(gen, (D, H * hd)),
+        "wk": normal_init(gen, (D, KV * hd)),
+        "wv": normal_init(gen, (D, KV * hd)),
+        "wo": normal_init(gen, (H * hd, D)),
+        "ln2": torch.zeros((D,), dtype=f32, device=dev),
+    }
+    if cfg.qkv_bias:
+        p["bq"] = torch.zeros((H * hd,), dtype=bf16, device=dev)
+        p["bk"] = torch.zeros((KV * hd,), dtype=bf16, device=dev)
+        p["bv"] = torch.zeros((KV * hd,), dtype=bf16, device=dev)
+    p["mlp"] = init_gated_mlp(gen, D, cfg.d_ff)
+    return p
+
+
+def init_block(gen: torch.Generator, cfg: ArchConfig, kind: str) -> dict:
+    if kind in ATTN_KINDS:
+        return _init_attn_block(gen, cfg)
+    if kind == "mamba1":
+        return {"ln": torch.zeros((cfg.d_model,), dtype=torch.float32,
+                                  device=gen.device),
+                "mixer": init_mamba1(gen, cfg.d_model, cfg.ssm)}
+    raise _not_ported(f"block kind {kind!r}")
+
+
+def init_block_cache(cfg: ArchConfig, kind: str, batch: int, max_len: int, *,
+                     device: torch.device,
+                     dtype: torch.dtype = torch.bfloat16) -> dict:
+    """Zeroed cache of one block: K/V (batch, max_len, KV, hd) in the
+    activation dtype for attention; for mamba1 the conv state in bf16 (as
+    the reference stores it, even in a float32 run) and the float32 scan
+    state."""
+    if kind in ATTN_KINDS:
+        shape = (batch, max_len, cfg.n_kv_heads, cfg.resolved_head_dim())
+        return {"k": torch.zeros(shape, dtype=dtype, device=device),
+                "v": torch.zeros(shape, dtype=dtype, device=device)}
+    if kind == "mamba1":
+        ssm = cfg.ssm
+        di = ssm.d_inner(cfg.d_model)
+        return {"conv": torch.zeros((batch, ssm.conv_kernel - 1, di),
+                                    dtype=torch.bfloat16, device=device),
+                "ssm": torch.zeros((batch, di, ssm.state_dim),
+                                   dtype=torch.float32, device=device)}
+    raise _not_ported(f"block kind {kind!r}")
+
+
+# --------------------------------------------------------------------------
+# per-block apply
+# --------------------------------------------------------------------------
+
+def apply_block(cfg: ArchConfig, kind: str, p: dict, x: torch.Tensor, *,
+                mode: str, cache: dict, pos: int | None = None,
+                backend: str = "auto") -> tuple[torch.Tensor, dict]:
+    """Returns (x, cache); ``cache`` is updated in place."""
+    if mode not in MODES:
+        raise _not_ported(f"mode {mode!r} (training)")
+    if kind in ATTN_KINDS:
+        return _apply_attn(cfg, kind, p, x, mode=mode, cache=cache, pos=pos,
+                           backend=backend)
+    if kind != "mamba1":
+        raise _not_ported(f"block kind {kind!r}")
+    h = rms_norm(x, p["ln"])
+    if mode == "prefill":
+        y, (conv, ssm_state) = mamba1_forward(p["mixer"], h, cfg.ssm,
+                                              backend=backend)
+    else:
+        y, (conv, ssm_state) = mamba1_decode(
+            p["mixer"], h, (cache["conv"], cache["ssm"]), cfg.ssm,
+            backend=backend)
+    cache["conv"] = conv.to(torch.bfloat16)
+    cache["ssm"] = ssm_state
+    return x + y, cache
+
+
+def _apply_attn(cfg: ArchConfig, kind: str, p: dict, x: torch.Tensor, *,
+                mode: str, cache: dict, pos: int | None,
+                backend: str) -> tuple[torch.Tensor, dict]:
+    B, S, _ = x.shape
+    hd = cfg.resolved_head_dim()
+    H, KV = cfg.n_heads, cfg.n_kv_heads
+    window = cfg.local_window if kind == "attn_local" else None
+
+    h = rms_norm(x, p["ln1"])
+    q = h @ p["wq"]
+    k = h @ p["wk"]
+    v = h @ p["wv"]
+    if cfg.qkv_bias:
+        q = q + p["bq"]
+        k = k + p["bk"]
+        v = v + p["bv"]
+    q = q.view(B, S, H, hd)
+    k = k.view(B, S, KV, hd)
+    v = v.view(B, S, KV, hd)
+    if mode == "decode":
+        positions = torch.full((B, 1), pos, dtype=torch.int64,
+                               device=x.device)
+    else:
+        positions = torch.arange(S, device=x.device)[None, :]
+    q = rope(q, positions, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_theta)
+
+    if mode == "prefill":
+        cache["k"][:, :S] = k
+        cache["v"][:, :S] = v
+        o = attention_blockwise(q, k, v, window=window,
+                                softcap=cfg.attn_softcap, backend=backend)
+    else:  # decode: the new token's k/v go to slot ``pos``
+        cache["k"][:, pos] = k[:, 0]
+        cache["v"][:, pos] = v[:, 0]
+        o = attention_decode(q, cache["k"], cache["v"], cache_len=pos,
+                             window=window, softcap=cfg.attn_softcap,
+                             backend=backend)
+    x = x + o.reshape(B, S, H * hd) @ p["wo"]
+    y = gated_mlp(p["mlp"], rms_norm(x, p["ln2"]), cfg.act)
+    return x + y, cache
+
+
+# --------------------------------------------------------------------------
+# full stack
+# --------------------------------------------------------------------------
+
+def _layers(cfg: ArchConfig, tree: dict):
+    """(kind, params-or-cache of that block) for every layer, in order."""
+    for g in range(cfg.n_groups):
+        for i, kind in enumerate(cfg.layer_pattern):
+            yield kind, tree["groups"][g][f"b{i}"]
+    for i, kind in enumerate(cfg.remainder_pattern):
+        yield kind, tree["rest"][i]
+
+
+def init_lm_params(cfg: ArchConfig, gen: torch.Generator) -> dict:
+    check_config(cfg)
+    groups = [{f"b{i}": init_block(gen, cfg, k)
+               for i, k in enumerate(cfg.layer_pattern)}
+              for _ in range(cfg.n_groups)]
+    params = {
+        "embed": normal_init(gen, (cfg.vocab, cfg.d_model)),
+        "groups": groups,
+        "rest": [init_block(gen, cfg, k) for k in cfg.remainder_pattern],
+        "final_norm": torch.zeros((cfg.d_model,), dtype=torch.float32,
+                                  device=gen.device),
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = normal_init(gen, (cfg.d_model, cfg.vocab))
+    return params
+
+
+def lm_apply(cfg: ArchConfig, params: dict, x: torch.Tensor, *, mode: str,
+             caches: dict, pos: int | None = None,
+             backend: str = "auto") -> tuple[torch.Tensor, dict]:
+    """Run the full stack on hidden states x (B, S, D); returns the final
+    normed hidden states and the caches (updated in place)."""
+    for (kind, p), (_, cache) in zip(_layers(cfg, params),
+                                     _layers(cfg, caches)):
+        x, _ = apply_block(cfg, kind, p, x, mode=mode, cache=cache, pos=pos,
+                           backend=backend)
+    return rms_norm(x, params["final_norm"]), caches
+
+
+def init_lm_caches(cfg: ArchConfig, batch: int, max_len: int, *,
+                   device: torch.device,
+                   dtype: torch.dtype = torch.bfloat16) -> dict:
+    check_config(cfg)
+    new = lambda k: init_block_cache(cfg, k, batch, max_len,  # noqa: E731
+                                     device=device, dtype=dtype)
+    return {"groups": [{f"b{i}": new(k) for i, k in enumerate(cfg.layer_pattern)}
+                       for _ in range(cfg.n_groups)],
+            "rest": [new(k) for k in cfg.remainder_pattern]}
