@@ -7,7 +7,10 @@ Phases, each raising on failure (the script then exits non-zero):
 
 1. the card: its name and power limit (``nvidia-smi``);
 2. build all seven CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc``
-   each, in parallel);
+   each, in parallel); print ``ptxas``'s registers and spills of every
+   entry function, and the tensor-core instructions (``HMMA``/``HGMMA``)
+   of every ``flash_attention`` kernel from ``cuobjdump -sass`` (each bf16
+   tensor-core prefill kernel must have some);
 3. kernel parity at the main path's shapes — 16,384 slots, depth 3, the
    555 links of the 500-site grid, 679 and 13,528 dirty slots (the mean and
    the maximum per flush on ``grid_500_saturated``): each kernel bit-equal
@@ -39,11 +42,14 @@ Phases, each raising on failure (the script then exits non-zero):
 8. the serving path's kernels at its shapes (``ATTN_CASES``, ``SCAN_CASES``):
    ``flash_attention`` for the gemma3-1b prefill (B 4, H 4, KV 1, S 1,024,
    hd 256; global, local, float32 and softcap forms) and decode (one query
-   against the 1,040-slot cache), ``selective_scan`` for the falcon-mamba-7b
+   against the 1,040-slot cache; global and local in bf16, global in
+   float32), ``selective_scan`` for the falcon-mamba-7b
    prefill (Bz 4, S 1,024, Di 8,192, N 16) and decode (S 1 from a state),
    each against its plain version within ``TOL`` (ten times for the scan),
    with device, wrapper, plain and ``scaled_dot_product_attention`` times
-   beside the bound;
+   beside the bound, and the ``flash_attention`` route each case takes
+   (``plan_launch``: bf16 prefill on the tensor cores, float32 prefill on
+   the CUDA cores, decode as splits of the key range and a merge);
 9. serving (``SERVE``): ``repro_torch.launch.serve`` at full width for
    gemma3-1b and falcon-mamba-7b — seeded weights, the two-pod router, 4
    requests of 1,024-token prompts, 16 new tokens — on the kernels, then the
@@ -119,6 +125,7 @@ ATTN_CASES = (
     ("prefill softcap bf16", "bfloat16", 1024, None, 50.0, 0, None),
     ("decode global bf16", "bfloat16", 1, None, None, 1039, 1040),
     ("decode local bf16", "bfloat16", 1, 512, None, 1039, 1040),
+    ("decode global f32", "float32", 1, None, None, 1039, 1040),
 )
 GEMMA_B, GEMMA_H, GEMMA_KV, GEMMA_HD, CACHE_LEN = 4, 4, 1, 256, 1040
 SCAN_CASES = (("prefill f32", 1024), ("decode S=1 f32", 1))
@@ -696,7 +703,8 @@ def phase_model_kernels(dev) -> dict:
 
     from repro_torch.kernels.flash_attention import (attention_mask,
                                                      flash_attention_kernel,
-                                                     flash_attention_ref)
+                                                     flash_attention_ref,
+                                                     plan_launch)
     from repro_torch.kernels.selective_scan import (selective_scan_kernel,
                                                     selective_scan_ref)
 
@@ -714,6 +722,10 @@ def phase_model_kernels(dev) -> dict:
         k, v = t(B, skv, KV, hd).transpose(1, 2), t(B, skv, KV, hd).transpose(1, 2)
         kw = dict(causal=True, window=window, softcap=cap, q_offset=q_offset,
                   kv_len=kv_len)
+        plan = plan_launch(B, H, KV, sq, kv_len or skv, causal=True,
+                           window=window, q_offset=q_offset, dtype=dt)
+        route = plan.route + (f" ({plan.n_split} splits of "
+                              f"{plan.split_len})" if plan.n_split else "")
         err = _close_or_raise(f"flash_attention {name}",
                               flash_attention_kernel(q, k, v, **kw),
                               flash_attention_ref(q, k, v, **kw), TOL[dtype])
@@ -735,7 +747,8 @@ def phase_model_kernels(dev) -> dict:
                     qc, kc, vc, attn_mask=mask, enable_gqa=True)
         out.setdefault("flash_attention", []).append(_model_record(
             f"flash_attention {name} B={B} H={H} KV={KV} Sq={sq} Skv={skv} "
-            f"hd={hd}", lambda: flash_attention_kernel(q, k, v, **kw),
+            f"hd={hd} route={route}",
+            lambda: flash_attention_kernel(q, k, v, **kw),
             lambda: flash_attention_ref(q, k, v, **kw), library, err,
             TOL[dtype], bytes_, flops,
             BF16_FLOPS if dt == torch.bfloat16 else FP32_FLOPS, 10))
@@ -876,6 +889,75 @@ def phase_serve(dev) -> dict:
     return out
 
 
+def ptxas_report(log: str) -> list:
+    """``(kernel, "N registers, S bytes spill stores, L bytes spill
+    loads")`` for each entry function of one ``nvcc -Xptxas -v`` log."""
+    import re
+
+    out, fn, spill = [], None, ""
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            fn = demangle(m.group(1))
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spill = f"{m.group(1)} bytes spill stores, {m.group(2)} bytes " \
+                    "spill loads"
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn:
+            out.append((fn, f"{m.group(1)} registers, {spill}"))
+            fn, spill = None, ""
+    return out
+
+
+def demangle(symbol: str) -> str:
+    """``c++filt``'s reading of a mangled kernel name, without the
+    anonymous namespace and the parameter list; the symbol itself when
+    ``c++filt`` is missing."""
+    try:
+        name = subprocess.run(["c++filt", symbol], capture_output=True,
+                              text=True, check=True).stdout.strip()
+    except (OSError, subprocess.CalledProcessError):
+        return symbol
+    return name.replace("(anonymous namespace)::", "").split("(")[0]
+
+
+def phase_sass() -> dict:
+    """Tensor-core instructions (``HMMA``, ``HGMMA``) per entry function of
+    the ``flash_attention`` library, read from ``cuobjdump -sass``; raises
+    unless each tensor-core prefill kernel (one per head dim) has some.
+    The other routes run on the CUDA cores."""
+    import re
+    import shutil
+
+    from repro_torch.kernels import _cuda
+    from repro_torch.kernels.flash_attention.kernel import HEAD_DIMS
+
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    lib = _cuda._library_path("flash_attention")
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = demangle(m.group(1))
+            counts[fn] = 0
+        elif fn and re.search(r"\bH(G)?MMA\b", line):
+            counts[fn] += 1
+    for fn, n in sorted(counts.items()):
+        print(f"[sass] flash_attention: {fn}: {n} HMMA/HGMMA instructions")
+    mma = {fn: n for fn, n in counts.items() if "flash_kernel_mma" in fn}
+    if len(mma) != len(HEAD_DIMS) or not all(mma.values()):
+        raise AssertionError(f"tensor-core prefill kernels without HMMA: "
+                             f"{mma}")
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -894,23 +976,25 @@ def main() -> int:
 
     build_s = _cuda.build()
     print(f"[build] {', '.join(_cuda.KERNELS)} built in {build_s:.2f}s")
-    for name, log in _cuda.BUILD_LOGS.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"[build] {name}: {line.strip()}")
+    ptxas = {name: ptxas_report(log) for name, log in _cuda.BUILD_LOGS.items()}
+    for name, reports in ptxas.items():
+        for fn, report in reports:
+            print(f"[build] {name}: {fn}: {report}")
+    tensor_cores = phase_sass()
 
     kernels = phase_kernels(dev)
     dense = phase_dense_kernels(dev)
-    launches = {"net_rerate": phase_golden(dev)["net_rerate"],
-                "event_engine": phase_scale(dev)["event_engine"]}
+    golden, scale = phase_golden(dev), phase_scale(dev)
     paths = phase_paths(dev)
+    model = phase_model_kernels(dev)
+    served = phase_serve(dev)
+    launches = {"net_rerate": golden["net_rerate"],
+                "event_engine": scale["event_engine"]}
     by_path = {name: {p: paths[p][name] for p, ks in PATH_KERNELS.items()
                       if name in ks}
                for name in ("strategy_plan", "st_cost", "value_score")}
     for name, counts in by_path.items():
         launches[name] = sum(counts.values())
-    model = phase_model_kernels(dev)
-    served = phase_serve(dev)
     for arch, r in served.items():
         launches[r["kernel"]] = r["launches"]
 
@@ -990,6 +1074,10 @@ def main() -> int:
                                "bound_by")} for r in rows[1:]],
             "serving": {a: {k: v for k, v in r.items() if k != "kernel"}
                         for a, r in served.items() if r["kernel"] == name},
+            **({"routes": {r["shape"]: r["ms"] for r in rows},
+                "ptxas": dict(ptxas.get(name, [])),
+                "tensor_core_instructions": tensor_cores}
+               if name == "flash_attention" else {}),
         })
     print(smi)
     print(json.dumps({"kernels": summary}))

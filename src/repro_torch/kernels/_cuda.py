@@ -64,7 +64,7 @@ _SIGNATURES = {
     "flash_attention": ("flash_attention",
                         [_VP, _VP, _VP, _VP, _VP, _I64, _I64, _I64, _I64,
                          _I64, _I64, _I64, _INT, _INT, _I64, _F32, _I64, _F32,
-                         _VP, _INT]),
+                         _INT, _I64, _I64, _I64, _I64, _VP, _VP, _INT]),
     "selective_scan": ("selective_scan",
                        [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I64,
                         _I64, _I64, _I64, _INT, _VP, _INT]),

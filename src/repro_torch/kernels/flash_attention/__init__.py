@@ -1,6 +1,7 @@
-from .kernel import flash_attention_kernel
+from .kernel import flash_attention_kernel, plan_launch
 from .ops import BACKENDS, flash_attention
-from .ref import attention_mask, flash_attention_ref
+from .ref import attention_mask, flash_attention_ref, flash_attention_split_ref
 
 __all__ = ["BACKENDS", "attention_mask", "flash_attention",
-           "flash_attention_kernel", "flash_attention_ref"]
+           "flash_attention_kernel", "flash_attention_ref",
+           "flash_attention_split_ref", "plan_launch"]

@@ -1,15 +1,63 @@
-"""Launch of the CUDA flash attention kernel (``csrc/flash_attention.cu``)."""
+"""Launch of the CUDA flash attention kernels (``csrc/flash_attention.cu``).
+
+:func:`plan_launch` picks one of three routes per call from the shapes
+alone, so the CPU tests hold the rule: the split-KV decode kernel when the
+(head, query) rows of a KV group fit one row tile (``DECODE_ROWS``),
+otherwise the tensor-core prefill kernel for bf16 and the SIMT prefill
+kernel for float32.
+"""
 
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 
 import torch
 
 from .. import _cuda
+from .ref import key_range
 
 #: head dims the kernel is compiled for (those of the repo's configs/tests)
 HEAD_DIMS = (16, 32, 64, 128, 256)
+#: the routes, by the id the C entry point takes
+ROUTES = ("simt", "mma", "decode")
+#: (head, query) rows of a KV group up to which a call is a decode
+DECODE_ROWS = 16
+#: keys per decode split (the kernel takes these two)
+SPLIT_KEYS = (32, 64)
+#: streaming multiprocessors of the H100 the decode splits aim to cover
+SMS = 132
+
+
+@dataclass(frozen=True)
+class LaunchPlan:
+    """``route`` (one of :data:`ROUTES`); the keys ``[key_lo, key_hi)``
+    that some query of the call may see; for ``"decode"`` the split length
+    and count (``n_split`` splits of ``split_len`` keys cover the range,
+    the last one ragged), else 0."""
+
+    route: str
+    key_lo: int
+    key_hi: int
+    split_len: int = 0
+    n_split: int = 0
+
+
+def plan_launch(B: int, H: int, KV: int, Sq: int, kend: int, *,
+                causal: bool, window: int | None, q_offset: int,
+                dtype: torch.dtype) -> LaunchPlan:
+    """The route of one call and, for a decode, its splits: 32 keys when
+    ``B * KV`` blocks of 64-key splits would not cover the card's
+    :data:`SMS` once, else 64."""
+    lo, hi = key_range(Sq, kend, causal=causal, window=window,
+                       q_offset=q_offset)
+    if (H // KV) * Sq <= DECODE_ROWS:
+        n = hi - lo
+        long_split = SPLIT_KEYS[1]
+        split = (long_split if B * KV * -(-n // long_split) >= SMS
+                 else SPLIT_KEYS[0])
+        return LaunchPlan("decode", lo, hi, split, max(1, -(-n // split)))
+    return LaunchPlan("mma" if dtype == torch.bfloat16 else "simt", lo, hi)
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -52,7 +100,9 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     launched on the current stream (no synchronisation). q, k and v may be
     strided views (the model passes ``(B, S, H, hd)`` storage seen as
     ``(B, H, S, hd)``); the result is a ``(B, H, Sq, hd)`` view of a
-    ``(B, Sq, H, hd)`` tensor, so the model's head merge is free."""
+    ``(B, Sq, H, hd)`` tensor, so the model's head merge is free. A decode
+    call allocates its float32 split scratch here, on the current stream
+    (valid under CUDA-graph capture); the kernels allocate nothing."""
     _check(q, k, v)
     if window is not None and window < 1:
         raise ValueError(f"flash_attention: window {window} < 1")
@@ -65,6 +115,12 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kend = Skv if kv_len is None else max(0, min(Skv, kv_len))
     if out.numel() == 0:
         return out
+    plan = plan_launch(B, H, KV, Sq, kend, causal=causal, window=window,
+                       q_offset=q_offset, dtype=q.dtype)
+    scratch = None
+    if plan.route == "decode":
+        scratch = torch.empty((B, H, Sq, plan.n_split, hd + 2),
+                              dtype=torch.float32, device=dev)
     strides = (ctypes.c_int64 * 12)(*q.stride()[:3], *k.stride()[:3],
                                     *v.stride()[:3], *out.stride()[:3])
     err = _cuda.entry_point("flash_attention")(
@@ -72,6 +128,8 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         B, H, KV, Sq, Skv, kend, hd, int(q.dtype == torch.bfloat16),
         int(causal), 0 if window is None else window,
         0.0 if softcap is None else softcap, q_offset, hd ** -0.5,
+        ROUTES.index(plan.route), plan.key_lo, plan.key_hi, plan.split_len,
+        plan.n_split, None if scratch is None else scratch.data_ptr(),
         _cuda.stream(dev), dev.index)
     _cuda.check("flash_attention", err)
     return out

@@ -5,7 +5,9 @@ No JAX here, so the file runs on the card's machine:
 ops' routes and the wrappers' input checks (a CUDA tensor launches the
 kernel or raises; nothing falls back). On the card (``-m gpu``) each kernel
 is held against its plain version — the grid of ``tests/test_kernels.py``,
-the serving path's shapes, the model's strided layouts — at that file's
+the serving path's shapes, the model's strided layouts, the edges of each
+``flash_attention`` route (ragged tiles, empty and ragged decode splits,
+every head dim, a call replayed from a CUDA graph) — at that file's
 tolerances: ``TOL`` for attention, ten times ``TOL`` for the scan (1,024
 steps of a recurrence in another rounding order). The plain versions are
 held against the reference's by ``test_torch_attention.py`` and
@@ -17,9 +19,12 @@ import pytest
 import torch
 
 from repro_torch.kernels import _cuda
-from repro_torch.kernels.flash_attention import (flash_attention,
+from repro_torch.kernels.flash_attention import (attention_mask,
+                                                 flash_attention,
                                                  flash_attention_kernel,
-                                                 flash_attention_ref)
+                                                 flash_attention_ref,
+                                                 flash_attention_split_ref,
+                                                 plan_launch)
 from repro_torch.kernels.selective_scan import (selective_scan,
                                                 selective_scan_kernel,
                                                 selective_scan_ref)
@@ -37,6 +42,32 @@ ATTN = [
     (4, 4, 1, 1024, 1024, 256, True, 512, None),    # gemma3-1b local
     (1, 16, 2, 40, 40, 128, True, None, 30.0),      # G 8, softcap
     (1, 64, 1, 3, 3, 16, True, None, None),         # G 64 > rows per block
+]
+#: prefill edges: Sq not a multiple of the 64-row tile, every head dim,
+#: q_offset > 0 with Sq > 1 (a chunk against a longer cache), softcap with
+#: a window
+PREFILL_IDS = "B,H,KV,Sq,Skv,hd,window,softcap,q_offset,kv_len"
+PREFILL = [
+    (2, 4, 1, 70, 70, 16, None, None, 0, None),
+    (1, 8, 2, 45, 45, 32, None, None, 0, None),
+    (2, 2, 2, 130, 130, 64, None, None, 0, None),
+    (1, 4, 1, 100, 100, 128, None, None, 0, None),
+    (2, 4, 1, 77, 77, 256, None, None, 0, None),
+    (1, 4, 1, 48, 300, 256, None, None, 200, 248),
+    (1, 4, 2, 33, 200, 64, 16, None, 100, 133),
+    (2, 4, 1, 200, 200, 128, 64, 30.0, 0, None),
+    (1, 8, 1, 96, 96, 256, 40, 50.0, 0, None),
+    (1, 2, 1, 1024, 1024, 256, 512, 50.0, 0, None),
+]
+#: decode beyond the serving shape: G * Sq <= 16 rows, every head dim
+DECODE_IDS = "G,Sq,hd,causal,window,pos"
+DECODE = [
+    (4, 4, 256, True, None, 100),
+    (1, 16, 128, True, 8, 300),
+    (1, 16, 128, True, 20, 300),    # two splits; rows 0-12 see none of the 2nd
+    (2, 3, 64, False, None, 90),
+    (16, 1, 32, True, 20, 40),
+    (8, 2, 16, True, None, 1500),
 ]
 SCAN = [(2, 64, 32, 8), (1, 128, 64, 16), (2, 96, 48, 4), (1, 256, 128, 16),
         (4, 1024, 8192, 16),                         # falcon-mamba-7b prefill
@@ -159,6 +190,142 @@ def test_cuda_attention_decode_matches_plain(window, pos):
     np.testing.assert_allclose(_f32(flash_attention_kernel(q, kc, vc, **kw)),
                                _f32(flash_attention_ref(q, kc, vc, **kw)),
                                atol=TOL["bfloat16"], rtol=TOL["bfloat16"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize(PREFILL_IDS, PREFILL)
+def test_cuda_attention_prefill_edges(B, H, KV, Sq, Skv, hd, window, softcap,
+                                      q_offset, kv_len, dtype):
+    """bf16 through the tensor-core kernel, float32 through the SIMT one,
+    on the model's strided views; one launch a call."""
+    dev = _card()
+    q, k, v = (t.transpose(1, 2).contiguous().transpose(1, 2) for t in
+               _qkv(Sq * hd + Skv, B, H, KV, Sq, Skv, hd, dtype, dev))
+    kw = dict(causal=True, window=window, softcap=softcap, q_offset=q_offset,
+              kv_len=kv_len)
+    plan = plan_launch(B, H, KV, Sq, Skv if kv_len is None else kv_len,
+                       causal=True, window=window, q_offset=q_offset,
+                       dtype=q.dtype)
+    assert plan.route == ("mma" if dtype == "bfloat16" else "simt")
+    before = _cuda.LAUNCHES["flash_attention"]
+    got = flash_attention_kernel(q, k, v, **kw)
+    assert _cuda.LAUNCHES["flash_attention"] == before + 1
+    np.testing.assert_allclose(_f32(got), _f32(flash_attention_ref(q, k, v,
+                                                                   **kw)),
+                               atol=TOL[dtype], rtol=TOL[dtype])
+
+
+def _decode_inputs(seed, B, G, KV, Sq, hd, dtype, dev, cache=1040):
+    """q (B, Sq, H, hd) and a (B, cache, KV, hd) cache, seen as (B, heads,
+    S, hd) as the model passes them."""
+    rng = np.random.default_rng(seed)
+    t = lambda *s: torch.tensor(  # noqa: E731
+        rng.standard_normal(s, np.float32), device=dev).to(
+            getattr(torch, dtype)).transpose(1, 2)
+    return t(B, Sq, G * KV, hd), t(B, cache, KV, hd), t(B, cache, KV, hd)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("G", [1, 4, 8])
+@pytest.mark.parametrize("window,softcap", [(None, None), (512, None),
+                                            (None, 50.0), (512, 50.0)])
+@pytest.mark.parametrize("pos", [0, 31, 32, 511, 1039])
+def test_cuda_attention_split_decode(pos, window, softcap, G, dtype):
+    """The split-KV decode route at the serving head dim: one split of one
+    key (pos 0), one full split (31), a full split beside a one-key split
+    (32), full splits only (511; 1039 under the window) and a ragged last
+    split (1039); held to the plain version and to the plain
+    split-and-merge. With one query the planned range is exactly the
+    row's visible keys, so no split is empty here: ``DECODE`` holds that
+    case."""
+    dev = _card()
+    q, kc, vc = _decode_inputs(pos * 8 + G, 2, G, 2, 1, 256, dtype, dev)
+    kw = dict(causal=True, window=window, softcap=softcap, q_offset=pos,
+              kv_len=pos + 1)
+    plan = plan_launch(2, 2 * G, 2, 1, pos + 1, causal=True, window=window,
+                       q_offset=pos, dtype=q.dtype)
+    assert plan.route == "decode"
+    before = _cuda.LAUNCHES["flash_attention"]
+    got = _f32(flash_attention_kernel(q, kc, vc, **kw))
+    assert _cuda.LAUNCHES["flash_attention"] == before + 1
+    tol = dict(atol=TOL[dtype], rtol=TOL[dtype])
+    np.testing.assert_allclose(got, _f32(flash_attention_ref(q, kc, vc, **kw)),
+                               **tol)
+    np.testing.assert_allclose(got, _f32(flash_attention_split_ref(
+        q, kc, vc, split_len=plan.split_len, **kw)), **tol)
+
+
+def test_decode_cases_hold_empty_and_ragged_splits():
+    """``DECODE`` (run on the card below) plans some row a split with no
+    visible key beside splits with some, and some split ragged, so the
+    merge's zero weight for an empty split and the partial last split are
+    both exercised on the card."""
+    empty = ragged = False
+    for G, Sq, hd, causal, window, pos in DECODE:
+        plan = plan_launch(2, G, 1, Sq, pos + Sq, causal=causal,
+                           window=window, q_offset=pos, dtype=torch.float32)
+        assert plan.route == "decode"
+        mask = attention_mask(Sq, pos + Sq, causal=causal, window=window,
+                              q_offset=pos, kv_len=pos + Sq,
+                              device=torch.device("cpu"))
+        starts = range(plan.key_lo, plan.key_hi, plan.split_len)
+        seen = torch.stack([mask[:, a:a + plan.split_len].any(1)
+                            for a in starts], 1)          # (row, split)
+        empty |= bool((seen.any(1) & ~seen.all(1)).any())
+        ragged |= (plan.key_hi - plan.key_lo) % plan.split_len != 0
+    assert empty and ragged
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize(DECODE_IDS, DECODE)
+def test_cuda_attention_split_decode_rows(G, Sq, hd, causal, window, pos,
+                                          dtype):
+    """Several queries per head (speculative-decode shapes), non-causal
+    calls and every head dim of the decode kernel."""
+    dev = _card()
+    q, kc, vc = _decode_inputs(G * Sq + hd, 2, G, 1, Sq, hd, dtype, dev,
+                               cache=pos + Sq + 5)
+    kw = dict(causal=causal, window=window, q_offset=pos, kv_len=pos + Sq)
+    assert plan_launch(2, G, 1, Sq, pos + Sq, causal=causal, window=window,
+                       q_offset=pos, dtype=q.dtype).route == "decode"
+    before = _cuda.LAUNCHES["flash_attention"]
+    got = flash_attention_kernel(q, kc, vc, **kw)
+    assert _cuda.LAUNCHES["flash_attention"] == before + 1
+    np.testing.assert_allclose(_f32(got),
+                               _f32(flash_attention_ref(q, kc, vc, **kw)),
+                               atol=TOL[dtype], rtol=TOL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("Sq", [1, 1024])
+def test_cuda_attention_graph_replay(Sq):
+    """A call captured in a CUDA graph (as the timing and a graph-captured
+    decode step take it) and replayed on new inputs written in place: the
+    decode route's split scratch, allocated by the wrapper during capture,
+    stays valid."""
+    dev = _card()
+    pos = 1039 if Sq == 1 else 0
+    q, kc, vc = _decode_inputs(Sq, 4, 4, 1, Sq, 256, "bfloat16", dev,
+                               cache=1040 if Sq == 1 else Sq)
+    kw = dict(causal=True, q_offset=pos, kv_len=pos + Sq)
+    flash_attention_kernel(q, kc, vc, **kw)          # build, load, configure
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = flash_attention_kernel(q, kc, vc, **kw)
+    for seed in (1, 2):
+        new = _decode_inputs(seed, 4, 4, 1, Sq, 256, "bfloat16", dev,
+                             cache=kc.shape[2])
+        for dst, src in zip((q, kc, vc), new):
+            dst.copy_(src)
+        graph.replay()
+        torch.cuda.synchronize()
+        np.testing.assert_allclose(_f32(out),
+                                   _f32(flash_attention_ref(q, kc, vc, **kw)),
+                                   atol=TOL["bfloat16"], rtol=TOL["bfloat16"])
 
 
 @pytest.mark.gpu
