@@ -10,14 +10,22 @@ Phases, each raising on failure (the script then exits non-zero):
    each, in parallel); print ``ptxas``'s registers and spills of every
    entry function, and the tensor-core instructions (``HMMA``/``HGMMA``)
    of every ``flash_attention`` kernel from ``cuobjdump -sass`` (each bf16
-   tensor-core prefill kernel must have some);
-3. kernel parity at the main path's shapes — 16,384 slots, depth 3, the
-   555 links of the 500-site grid, 679 and 13,528 dirty slots (the mean and
-   the maximum per flush on ``grid_500_saturated``): each kernel bit-equal
-   to its plain PyTorch version on the same inputs, slots outside the index
-   list untouched; the device time of both (calls replayed from a CUDA
-   graph) and the time of a call through the Python wrapper, beside the
-   bound;
+   tensor-core prefill kernel must have some), and the non-coherent loads
+   of the network cluster kernels (none may be narrower than 64 bits: their
+   int32 path rows are written and read in one launch);
+3. the two network kernels (one thread-block cluster per engine call, the
+   staged alloc/release slot writes folded in) at the main path's shapes —
+   16,384 slots, depth 3, the 555 links of the 500-site grid, 679 and
+   13,528 dirty slots (the mean and the maximum per flush on
+   ``grid_500_saturated``), a staged release and a staged alloc: each
+   kernel bit-equal to its plain PyTorch version on the same packed inputs, slots outside the listed and staged
+   ones untouched; the kernel's device time and its device operations per
+   call (``torch.profiler`` over 200 calls: one kernel and one copy), the
+   time of a call through the wrapper (copy, launch, sync), the plain
+   version's device time (calls replayed from a CUDA graph) and wrapper
+   time, beside the bound. After phase 7 the same check runs at
+   ``grid_500_evict``'s own per-call shape (its slot capacity, listed and
+   staged slots per re-rate, from the card run);
 4. golden cells on the card: ``fig4/hrs/100`` bit-exact under
    ``net="numpy"`` and ``net="pallas"`` (the ``net_rerate`` path), within
    ``tests/golden_tolerance.json`` under ``net="device"``, and the deep cell
@@ -38,7 +46,8 @@ Phases, each raising on failure (the script then exits non-zero):
    ``economy_starved`` at seed 0 and ``hotset_drift`` under the
    ``predictive`` strategy. All four metrics must equal between the card
    and the CPU and equal the reference's (``REFERENCE``), and each path
-   must launch its kernels (``PATH_KERNELS``);
+   must launch its kernels (``PATH_KERNELS``); the card runs record their
+   network-call shapes (``watch_engines``);
 8. the serving path's kernels at its shapes (``ATTN_CASES``, ``SCAN_CASES``):
    ``flash_attention`` for the gemma3-1b prefill (B 4, H 4, KV 1, S 1,024,
    hd 256; global, local, float32 and softcap forms) and decode (one query
@@ -202,128 +211,199 @@ def wrapper_ms(fn, rounds: int = ROUNDS, calls: int = CALLS,
     return statistics.median(times)
 
 
-def engine_state(seed: int, n_dirty: int, dev):
-    """Slot state at the main path's shapes: realistic paths from the
-    500-site grid, a mix of released, fresh and carried slots, random
-    link occupancy, and ``n_dirty`` distinct dirty slots."""
+def engine_state(scenario: str, seed: int, n_slots: int, n_dirty: int,
+                 n_staged: int, dev):
+    """Slot state and one call's inputs at a path's shapes: realistic paths
+    from the scenario's grid, a mix of released, fresh and carried slots,
+    random link occupancy, ``n_dirty`` distinct listed slots and
+    ``n_staged`` staged rows (releases and allocs; one alloc also listed,
+    as after a transfer start). Returns ``(state, inputs, now, sizes)``:
+    numpy slot arrays, the packed ``NetInputs`` on ``dev`` and the counts
+    the bound needs."""
     import numpy as np
-    import torch
 
     from repro_torch.core import SCENARIOS, build_topology, to_grid_config
+    from repro_torch.kernels.net_call import NetInputs
 
-    topo = build_topology(to_grid_config(SCENARIOS["grid_500_saturated"]))
+    topo = build_topology(to_grid_config(SCENARIOS[scenario]))
     rng = np.random.default_rng(seed)
     links = list(topo.nic_links) + list(topo.wan_links)
     bw = np.array([l.bandwidth for l in links])
     act = rng.integers(0, 40, len(links)).astype(np.float64)
     n_sites = topo.n_sites
-    path = np.full((SLOTS, DEPTH), -1, np.int32)
-    kind = rng.integers(0, 3, SLOTS)      # 0 released, 1 fresh, 2 carried
-    for s in np.flatnonzero(kind > 0):
+
+    def route():
         ids = topo.link_ids_for(int(rng.integers(n_sites)),
                                 int(rng.integers(n_sites)))
-        path[s, :len(ids)] = ids
+        row = np.full(DEPTH, -1, np.int32)
+        row[:len(ids)] = ids
+        return row
+
+    path = np.full((n_slots, DEPTH), -1, np.int32)
+    kind = rng.integers(0, 3, n_slots)    # 0 released, 1 fresh, 2 carried
+    for s in np.flatnonzero(kind > 0):
+        path[s] = route()
     now = 5e4
-    rem = np.where(kind == 1, rng.integers(1, 1000, SLOTS) * 5e5, 0.0)
-    rate = np.where(kind == 2, rng.uniform(1e4, 1e7, SLOTS), 0.0)
-    eta = np.where(kind == 2, now + rng.uniform(0.0, 1e5, SLOTS), np.inf)
+    rem = np.where(kind == 1, rng.integers(1, 1000, n_slots) * 5e5, 0.0)
+    rate = np.where(kind == 2, rng.uniform(1e4, 1e7, n_slots), 0.0)
+    eta = np.where(kind == 2, now + rng.uniform(0.0, 1e5, n_slots), np.inf)
     due = np.where(kind == 2, eta - 1.0 / np.where(rate > 0, rate, 1.0),
                    np.inf)
-    idx = np.sort(rng.choice(SLOTS, n_dirty, replace=False)).astype(np.int32)
-    t = {k: torch.tensor(v, device=dev) for k, v in dict(
-        idx=idx, path=path, rem=rem, rate=rate, eta=eta, due=due,
-        bw=bw, act=act).items()}
-    return t, now, len(links)
+    perm = rng.permutation(n_slots).astype(np.int32)
+    staged = perm[:n_staged]
+    alloc = np.arange(n_staged) % 2 == 0          # allocs and releases
+    st_rem = np.where(alloc, rng.integers(1, 1000, n_staged) * 5e5, 0.0)
+    st_path = np.stack([route() if a else np.full(DEPTH, -1, np.int32)
+                        for a in alloc]) if n_staged else \
+        np.zeros((0, DEPTH), np.int32)
+    idx = np.concatenate([staged[:1], perm[n_staged: n_staged + n_dirty - 1]]
+                         )[:n_dirty] if n_dirty else perm[:0]
+    state = dict(path=path, rem=rem, rate=rate, eta=eta, due=due,
+                 active=kind > 0)
+    inputs = NetInputs(len(links), DEPTH, dev).pack(
+        np.stack([bw, act]), staged, st_rem, alloc, st_path,
+        np.sort(idx))
+    sizes = dict(slots=n_slots, dirty=n_dirty, staged=n_staged,
+                 links=len(links))
+    return state, inputs, now, sizes
 
 
-def compare(name, got: dict, want: dict, idx, before: dict) -> float:
-    """Bit-equality of every output array (inf in the same places), and
-    slots outside ``idx`` untouched. Returns the max abs error (0.0)."""
+def slot_arrays(state: dict, dev):
     import torch
 
-    outside = torch.ones(SLOTS, dtype=torch.bool, device=idx.device)
-    outside[idx] = False
-    err = 0.0
-    for k in got:
-        a, b = got[k], want[k]
-        if not torch.equal(a, b):
-            fin = torch.isfinite(a) & torch.isfinite(b)
-            err = max(err, float((a[fin] - b[fin]).abs().max()))
-            raise AssertionError(f"{name}: {k} differs from the plain "
-                                 f"version (max abs err {err})")
-        if k in before and not torch.equal(a[outside], before[k][outside]):
-            raise AssertionError(f"{name}: {k} changed outside the dirty "
-                                 "slots")
-    return err
+    from repro_torch.kernels.net_call import SlotArrays
+
+    t = {k: torch.tensor(v, device=dev) for k, v in state.items()}
+    return SlotArrays(t["path"], t["rem"], t["rate"], t["eta"], t["due"],
+                      t["active"])
 
 
-def phase_kernels(dev) -> dict:
-    """Parity and timing of both kernels; returns per-kernel records."""
+def profiled_call(fn, calls: int = 200) -> dict:
+    """``calls`` back-to-back ``fn()`` calls under ``torch.profiler``
+    (after a warm-up): per call, the device time of the cluster kernels and
+    of the host-to-device copies, the number of device operations, and
+    each device operation's name with its count. The trace may miss a few
+    calls, so each average is over the cluster kernels it recorded
+    (``recorded``)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(10):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    kern = [e for e in rows if "cluster_kernel" in e.key]
+    copy = [e for e in rows if "Memcpy" in e.key]
+    if not kern:
+        raise AssertionError(f"no cluster kernel in the trace: "
+                             f"{[e.key for e in rows]}")
+    n = sum(e.count for e in kern)
+    return dict(
+        kernel_us=sum(e.self_device_time_total for e in kern) / n,
+        copy_us=sum(e.self_device_time_total for e in copy) / n,
+        device_ops_per_call=sum(e.count for e in rows) / n, recorded=n,
+        ops={e.key: e.count for e in rows})
+
+
+def net_kernel_case(scenario: str, seed: int, n_slots: int, n_dirty: int,
+                    n_staged: int, dev) -> dict:
+    """Both network kernels, with staged rows, at one shape: bit-equal to
+    their plain versions on the same packed inputs (slots outside the
+    listed and staged ones untouched); device time (``torch.profiler``)
+    and time through the wrapper of the kernel, device and wrapper time of
+    the plain version, and the bound. Returns ``{kernel: record}``."""
+    import torch
+
     from repro_torch.kernels.event_engine import (event_engine_kernel,
                                                   event_engine_ref)
     from repro_torch.kernels.net_rerate import (net_rerate_kernel,
                                                 net_rerate_ref)
 
+    state, inputs, now, n = engine_state(scenario, seed, n_slots, n_dirty,
+                                         n_staged, dev)
+    idx_t, bw_t, act_t, staged_t = inputs.tensors(dev)
+    touched = torch.zeros(n_slots, dtype=torch.bool, device=dev)
+    touched[idx_t.long()] = True
+    touched[staged_t[0].long()] = True
+    keys = ("path", "rem", "rate", "eta", "due", "active")
+    L, N, S, D, n_s = n["links"], n["dirty"], n["staged"], DEPTH, n["slots"]
+    # each input read once, each output written once: the packed inputs,
+    # the staged rows' six slot fields, then per listed slot and the scan
+    common = 16 * L + 8 * S + 4 * S * (2 + D) + 4 * N + S * (33 + 4 * D) + 8
+
+    def plain_net(sl, i=idx_t, b=bw_t, a=act_t, st=staged_t):
+        return net_rerate_ref(i, sl.path, sl.rem, sl.rate, b, a, now, st,
+                              eta=sl.eta, due=sl.due, active=sl.active)
+
+    def plain_flush(sl, i=idx_t, b=bw_t, a=act_t, st=staged_t):
+        return event_engine_ref(i, sl.path, sl.rem, sl.rate, sl.eta, sl.due,
+                                b, a, now, st, active=sl.active)
+
+    cases = (("net_rerate", net_rerate_kernel, plain_net,
+              common + 4 * D * N + 8 * N + 16 * n_s, 3 * D * N + 4 * n_s),
+             ("event_engine", event_engine_kernel, plain_flush,
+              common + 4 * D * N + 16 * N + 32 * N + 8 * n_s,
+              (3 * D + 8) * N + n_s))
     out = {}
+    for name, kern, plain, bytes_, flops in cases:
+        rec = dict(shape=f"{scenario} slots={n_s} dirty={N} staged={S}",
+                   n_dirty=N, bytes=bytes_, flops=flops, max_abs_err=0.0)
+        k = slot_arrays(state, dev)
+        p = slot_arrays(state, dev)
+        got = kern(inputs, k, now)
+        want = plain(p).item()
+        if got != want:
+            raise AssertionError(f"{name} {rec['shape']}: minimum {got!r} "
+                                 f"!= plain {want!r}")
+        before = slot_arrays(state, dev)
+        for key in keys:
+            a, b = getattr(k, key), getattr(p, key)
+            if not torch.equal(a, b):
+                raise AssertionError(f"{name}: {key} differs from the plain "
+                                     "version")
+            if not torch.equal(a[~touched], getattr(before, key)[~touched]):
+                raise AssertionError(f"{name}: {key} changed outside the "
+                                     "listed and staged slots")
+        fn = lambda: kern(inputs, k, now)  # noqa: E731
+        prof = profiled_call(fn)
+        rec.update(ms=prof["kernel_us"] / 1e3, copy_ms=prof["copy_us"] / 1e3,
+                   device_ops_per_call=prof["device_ops_per_call"],
+                   recorded=prof["recorded"], ops=prof["ops"],
+                   wrapper_ms=wrapper_ms(fn))
+        p = slot_arrays(state, dev)
+        rec["plain_ms"] = device_ms(lambda: plain(p))
+        # as the old engine called it: the inputs copied up, then the op
+        rec["plain_wrapper_ms"] = wrapper_ms(
+            lambda: plain(p, *inputs.tensors(dev)))
+        rec["bound_ms"], rec["bound_by"] = _bound(bytes_, flops)
+        print(f"[kernels] {name} {rec['shape']} bit-equal; device: "
+              f"kernel={1e3 * rec['ms']!r}us copy={1e3 * rec['copy_ms']!r}us "
+              f"device_ops_per_call={rec['device_ops_per_call']!r} "
+              f"{rec['ops']} (calls recorded: {rec['recorded']} of 200) "
+              f"plain={1e3 * rec['plain_ms']!r}us; through the "
+              f"wrapper: kernel={1e3 * rec['wrapper_ms']!r}us "
+              f"plain={1e3 * rec['plain_wrapper_ms']!r}us; bytes={bytes_} "
+              f"flops={flops} bound={1e3 * rec['bound_ms']!r}us "
+              f"({rec['bound_by']})")
+        out[name] = rec
+    return out
+
+
+def phase_kernels(dev) -> dict:
+    """Parity and timing of both network kernels at the smoke shapes
+    (16,384 slots, 679 and 13,528 dirty, one staged release and one
+    staged alloc); returns per-kernel lists of records."""
+    out: dict = {}
     for n_dirty in DIRTY:
-        t, now, n_links = engine_state(n_dirty, n_dirty, dev)
-        # event_engine: flush idx in place, min(eta) over all slots
-        keys = ("rem", "rate", "eta", "due")
-        k_state = {k: t[k].clone() for k in keys}
-        p_state = {k: t[k].clone() for k in keys}
-        k_min = event_engine_kernel(t["idx"], t["path"], *k_state.values(),
-                                    t["bw"], t["act"], now)
-        p_min = event_engine_ref(t["idx"], t["path"], *p_state.values(),
-                                 t["bw"], t["act"], now)
-        err = compare("event_engine", {**k_state, "eta_min": k_min},
-                      {**p_state, "eta_min": p_min}, t["idx"],
-                      {k: t[k] for k in keys})
-        kern = lambda: event_engine_kernel(  # noqa: E731
-            t["idx"], t["path"], *k_state.values(), t["bw"], t["act"], now)
-        plain = lambda: event_engine_ref(  # noqa: E731
-            t["idx"], t["path"], *p_state.values(), t["bw"], t["act"], now)
-        n = n_dirty
-        # int32 idx and path rows; rate plus eta (or rem) read and four
-        # float64 outputs written per dirty slot; eta read whole for the min
-        bytes_ = (4 * n + 4 * DEPTH * n + 16 * n + 8 * SLOTS + 16 * n_links
-                  + 32 * n + 8)
-        flops = (3 * DEPTH + 8) * n + SLOTS
-        out.setdefault("event_engine", []).append(dict(
-            n_dirty=n, max_abs_err=err, ms=device_ms(kern),
-            plain_ms=device_ms(plain), wrapper_ms=wrapper_ms(kern),
-            plain_wrapper_ms=wrapper_ms(plain), bytes=bytes_, flops=flops))
-        # net_rerate: re-rate idx in place, scan all live slots
-        k_rate, p_rate = t["rate"].clone(), t["rate"].clone()
-        k_min = net_rerate_kernel(t["idx"], t["path"], t["rem"], k_rate,
-                                  t["bw"], t["act"], now)
-        p_min = net_rerate_ref(t["idx"], t["path"], t["rem"], p_rate,
-                               t["bw"], t["act"], now)
-        err = compare("net_rerate", {"rate": k_rate, "eta_min": k_min},
-                      {"rate": p_rate, "eta_min": p_min}, t["idx"],
-                      {"rate": t["rate"]})
-        kern = lambda: net_rerate_kernel(  # noqa: E731
-            t["idx"], t["path"], t["rem"], k_rate, t["bw"], t["act"], now)
-        plain = lambda: net_rerate_ref(  # noqa: E731
-            t["idx"], t["path"], t["rem"], p_rate, t["bw"], t["act"], now)
-        bytes_ = 4 * n + 4 * DEPTH * n + 16 * n_links + 16 * SLOTS + 8 * n + 8
-        flops = 3 * DEPTH * n + 4 * SLOTS
-        out.setdefault("net_rerate", []).append(dict(
-            n_dirty=n, max_abs_err=err, ms=device_ms(kern),
-            plain_ms=device_ms(plain), wrapper_ms=wrapper_ms(kern),
-            plain_wrapper_ms=wrapper_ms(plain), bytes=bytes_, flops=flops))
-    for name, rows in out.items():
-        for r in rows:
-            r["bound_ms"] = 1e3 * max(r["bytes"] / HBM_BYTES_PER_S,
-                                      r["flops"] / FP64_FLOPS)
-            r["bound_by"] = ("bytes" if r["bytes"] / HBM_BYTES_PER_S
-                             >= r["flops"] / FP64_FLOPS else "operations")
-            print(f"[kernels] {name} dirty={r['n_dirty']} bit-equal "
-                  f"device: kernel={1e3 * r['ms']!r}us "
-                  f"plain={1e3 * r['plain_ms']!r}us; "
-                  f"through the wrapper: kernel={1e3 * r['wrapper_ms']!r}us "
-                  f"plain={1e3 * r['plain_wrapper_ms']!r}us; "
-                  f"bytes={r['bytes']} bound={1e3 * r['bound_ms']!r}us "
-                  f"({r['bound_by']})")
+        for name, rec in net_kernel_case("grid_500_saturated", n_dirty,
+                                         SLOTS, n_dirty, 2, dev).items():
+            out.setdefault(name, []).append(rec)
     return out
 
 
@@ -531,6 +611,22 @@ def vs_state(scenario: str, seed: int, dev):
     return t(demand), t(sizes), t(presence), net.point_bandwidth_matrix()
 
 
+def phase_path_shape(dev, shape: dict) -> dict:
+    """Both network kernels at ``grid_500_evict``'s own per-call shape
+    (from phase 7's run: its slot capacity, listed slots per re-rate,
+    staged rows per call rounded up)."""
+    import math
+
+    n_dirty = round(shape["dirty_per_call"])
+    n_staged = max(1, math.ceil(shape["staged_per_call"]))
+    print(f"[kernels] grid_500_evict per-call shape: slots={shape['slots']} "
+          f"rerate_calls={shape['rerate_calls']} "
+          f"dirty_per_call={shape['dirty_per_call']!r} "
+          f"staged_per_call={shape['staged_per_call']!r}")
+    return net_kernel_case("grid_500_evict", 3, shape["slots"], n_dirty,
+                           n_staged, dev)
+
+
 def phase_dense_kernels(dev) -> dict:
     """Parity and timing of strategy_plan, st_cost and value_score at
     their paths' shapes; returns per-kernel records (one per shape)."""
@@ -607,9 +703,43 @@ def phase_dense_kernels(dev) -> dict:
     return out
 
 
-def phase_paths(dev) -> dict:
+class watch_engines:
+    """Within the block, collect every ``NetworkEngine`` made and count the
+    kernel calls' packed staged rows (``NetInputs.pack``); yields
+    ``(engines, {"calls": n, "staged": rows})``. Wraps methods of this
+    process only, as ``launch/profile_scale.py`` does."""
+
+    def __enter__(self):
+        from repro_torch.core import NetworkEngine
+        from repro_torch.kernels.net_call import NetInputs
+
+        engines, packs = [], {"calls": 0, "staged": 0}
+        init, pack = NetworkEngine.__init__, NetInputs.pack
+
+        def watched_init(eng, *a, **kw):
+            init(eng, *a, **kw)
+            engines.append(eng)
+
+        def counted_pack(inputs, links, st_slot, *a, **kw):
+            packs["calls"] += 1
+            packs["staged"] += len(st_slot)
+            return pack(inputs, links, st_slot, *a, **kw)
+
+        self._saved = (NetworkEngine, init, NetInputs, pack)
+        NetworkEngine.__init__, NetInputs.pack = watched_init, counted_pack
+        return engines, packs
+
+    def __exit__(self, *exc):
+        cls_e, init, cls_i, pack = self._saved
+        cls_e.__init__, cls_i.pack = init, pack
+        return False
+
+
+def phase_paths(dev, shapes: dict) -> dict:
     """The slice's scenario paths on the card and on the CPU; returns the
-    card run's launch counts per path."""
+    card run's launch counts per path, and fills ``shapes`` with each
+    card run's network-call shape: slot capacity, re-rate calls, listed
+    and staged slots per call."""
     import dataclasses
 
     import torch
@@ -623,12 +753,23 @@ def phase_paths(dev) -> dict:
         spec = dataclasses.replace(SCENARIOS[scenario], **replace)
         results = []
         for device in (dev, torch.device("cpu")):
-            _cuda.reset_launches()
-            t0 = time.perf_counter()
-            r = run_spec(spec, n_jobs=n_jobs, device=device)
-            torch.cuda.synchronize(dev)
-            wall = time.perf_counter() - t0
+            with watch_engines() as seen:
+                _cuda.reset_launches()
+                t0 = time.perf_counter()
+                r = run_spec(spec, n_jobs=n_jobs, device=device)
+                torch.cuda.synchronize(dev)
+                wall = time.perf_counter() - t0
             results.append((r, dict(_cuda.LAUNCHES)))
+            if device.type == "cuda":
+                engines, packs = seen
+                st = r.net_stats
+                calls = max(1, st["rerate_calls"])
+                shapes[name] = dict(
+                    slots=max(e.cap for e in engines),
+                    rerate_calls=st["rerate_calls"],
+                    dirty_per_call=st["rerate_slots"] / calls,
+                    staged_per_call=packs["staged"] / max(1,
+                                                          packs["calls"]))
             print(f"[paths] {name} jobs={n_jobs} sites={spec.n_sites} "
                   f"device={device} wall_s={wall!r} "
                   f"avg_job_time={r.avg_job_time!r} makespan={r.makespan!r} "
@@ -925,20 +1066,17 @@ def demangle(symbol: str) -> str:
     return name.replace("(anonymous namespace)::", "").split("(")[0]
 
 
-def phase_sass() -> dict:
-    """Tensor-core instructions (``HMMA``, ``HGMMA``) per entry function of
-    the ``flash_attention`` library, read from ``cuobjdump -sass``; raises
-    unless each tensor-core prefill kernel (one per head dim) has some.
-    The other routes run on the CUDA cores."""
+def sass_counts(lib_name: str, pattern: str) -> dict:
+    """Instructions matching ``pattern`` per entry function of one
+    library, read from ``cuobjdump -sass``."""
     import re
     import shutil
 
     from repro_torch.kernels import _cuda
-    from repro_torch.kernels.flash_attention.kernel import HEAD_DIMS
 
     tool = shutil.which("cuobjdump") or os.path.join(
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
-    lib = _cuda._library_path("flash_attention")
+    lib = _cuda._library_path(lib_name)
     sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
                           text=True, check=True).stdout
     counts, fn = {}, None
@@ -947,15 +1085,41 @@ def phase_sass() -> dict:
         if m:
             fn = demangle(m.group(1))
             counts[fn] = 0
-        elif fn and re.search(r"\bH(G)?MMA\b", line):
+        elif fn and re.search(pattern, line):
             counts[fn] += 1
+    return counts
+
+
+def phase_sass() -> dict:
+    """Read the SASS of two kinds of kernel. The tensor-core instructions
+    (``HMMA``, ``HGMMA``) of each ``flash_attention`` entry function:
+    raises unless each tensor-core prefill kernel (one per head dim) has
+    some; the other routes run on the CUDA cores. The non-coherent
+    read-only loads (``LDG...CONSTANT``) narrower than 64 bits in the
+    network cluster kernels: raises on any, since their int32 reads (path
+    rows, index lists) may see rows the same launch wrote."""
+    from repro_torch.kernels.flash_attention.kernel import HEAD_DIMS
+
+    counts = sass_counts("flash_attention", r"\bH(G)?MMA\b")
     for fn, n in sorted(counts.items()):
         print(f"[sass] flash_attention: {fn}: {n} HMMA/HGMMA instructions")
     mma = {fn: n for fn, n in counts.items() if "flash_kernel_mma" in fn}
     if len(mma) != len(HEAD_DIMS) or not all(mma.values()):
         raise AssertionError(f"tensor-core prefill kernels without HMMA: "
                              f"{mma}")
-    return counts
+    narrow_nc = {}
+    for lib in ("net_rerate", "event_engine"):
+        nc = sass_counts(lib, r"\bLDG\S*\.CONSTANT\b")
+        narrow = sass_counts(lib, r"\bLDG(?!\S*\.(64|128))\S*\.CONSTANT\b")
+        for fn in sorted(nc):
+            print(f"[sass] {lib}: {fn}: {nc[fn]} non-coherent loads, "
+                  f"{narrow[fn]} of them narrower than 64 bits")
+            narrow_nc[fn] = narrow[fn]
+    if any(narrow_nc.values()):
+        raise AssertionError(f"network kernels with narrow non-coherent "
+                             f"loads: {narrow_nc}")
+    return {"tensor_core_instructions": counts,
+            "narrow_noncoherent_loads": narrow_nc}
 
 
 def main() -> int:
@@ -980,12 +1144,14 @@ def main() -> int:
     for name, reports in ptxas.items():
         for fn, report in reports:
             print(f"[build] {name}: {fn}: {report}")
-    tensor_cores = phase_sass()
+    sass = phase_sass()
 
     kernels = phase_kernels(dev)
     dense = phase_dense_kernels(dev)
     golden, scale = phase_golden(dev), phase_scale(dev)
-    paths = phase_paths(dev)
+    shapes: dict = {}
+    paths = phase_paths(dev, shapes)
+    path_shape = phase_path_shape(dev, shapes["grid_500_evict"])
     model = phase_model_kernels(dev)
     served = phase_serve(dev)
     launches = {"net_rerate": golden["net_rerate"],
@@ -1019,21 +1185,34 @@ def main() -> int:
     # net_rerate's own path is phase 4; the slice-2 paths run it too
     rerate_by_path = {"golden": launches["net_rerate"],
                       **{p: paths[p]["net_rerate"] for p in PATHS}}
+    # event_engine: the mean-dirty smoke shape is its path's;
+    # net_rerate: grid_500_evict's own per-call shape
     for name in ("event_engine", "net_rerate"):
-        row = kernels[name][0]      # the mean-dirty shape
+        rows = ([kernels[name][0], kernels[name][1], path_shape[name]]
+                if name == "event_engine" else
+                [path_shape[name], *kernels[name]])
+        row = rows[0]
         summary.append({
             "name": name, "route": "cuda", "source": sources[name][0],
             "replaces": sources[name][1], "launches": launches[name],
-            "max_abs_err": max(r["max_abs_err"] for r in kernels[name]),
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": None, "wrapper_ms": row["wrapper_ms"],
             "plain_wrapper_ms": row["plain_wrapper_ms"],
-            "n_dirty": row["n_dirty"],
-            "at_max_dirty": {k: kernels[name][1][k] for k in
-                             ("n_dirty", "ms", "plain_ms", "wrapper_ms",
-                              "bound_ms")},
-            **({"launches_by_path": rerate_by_path}
+            "shape": row["shape"],
+            "copy_ms": row["copy_ms"],
+            "device_ops_per_call": row["device_ops_per_call"],
+            "other_shapes": [{k: r[k] for k in
+                              ("shape", "ms", "plain_ms", "wrapper_ms",
+                               "plain_wrapper_ms", "bound_ms", "bound_by")}
+                             for r in rows[1:]],
+            "ptxas": dict(ptxas.get(name, [])),
+            "narrow_noncoherent_loads": {
+                fn: n for fn, n in sass["narrow_noncoherent_loads"].items()
+                if fn in dict(ptxas.get(name, []))},
+            **({"launches_by_path": rerate_by_path,
+                "path_shape": shapes["grid_500_evict"]}
                if name == "net_rerate" else {}),
         })
     # the first shape of each is its path's: the grid_500_evict burst at
@@ -1076,7 +1255,7 @@ def main() -> int:
                         for a, r in served.items() if r["kernel"] == name},
             **({"routes": {r["shape"]: r["ms"] for r in rows},
                 "ptxas": dict(ptxas.get(name, [])),
-                "tensor_core_instructions": tensor_cores}
+                "tensor_core_instructions": sass["tensor_core_instructions"]}
                if name == "flash_attention" else {}),
         })
     print(smi)

@@ -35,10 +35,14 @@ interpreter routes of the reference (``"pallas-interpret"``,
 Host/device traffic: link occupancy (``link_bw``/``link_act``), member
 lists and the path matrix's master copy stay on the host, because the
 topology ``Link`` objects mirror them and alloc/release are host events.
-Slot writes made by :meth:`alloc`/:meth:`release` are staged on the host
-and applied in one scatter before anything reads the slot tensors, so a
-transfer start costs no launch; link arrays and the re-rate index list go
-up in one copy per kernel call.
+Slot writes made by :meth:`alloc`/:meth:`release` are staged on the host,
+so a transfer start costs no launch. A re-rate or flush packs the link
+rows, the staged writes and the index list into one buffer
+(:class:`~repro_torch.kernels.net_call.NetInputs`), and its kernel applies
+the staged writes first: on the card, one copy up from page-locked memory,
+one launch and one sync per call. The other readers of the slot tensors
+(``advance``, ``completions``, ``arrays``) apply the staged writes in one
+scatter of their own first (:meth:`_apply_staged`).
 
 The point-bandwidth queries (:meth:`point_bandwidth_matrix`,
 :meth:`point_bandwidth_columns`) serve the batched planners, the
@@ -59,7 +63,9 @@ import torch
 
 from ..device import resolve_device
 from ..kernels.event_engine import event_engine
+from ..kernels.net_call import NetInputs, SlotArrays
 from ..kernels.net_rerate import net_rerate
+from ..kernels.share import scatter_staged
 from .topology import GridTopology
 
 # A transfer is complete when less than one byte remains (see the
@@ -126,6 +132,9 @@ class NetworkEngine:
         # slot -> (rem, active) written by alloc/release since the last
         # scatter; rate 0, eta/due inf and the host path row go with it
         self._staged: dict[int, tuple[float, bool]] = {}
+        self._bind()
+        # the kernel calls' packed host inputs, reused call after call
+        self._inputs = NetInputs(self.n_links, self.max_links, dev)
         self.obj: list[Optional[object]] = [None] * self.cap
         self._free = list(range(self.cap - 1, -1, -1))
         self.n_active = 0
@@ -152,6 +161,12 @@ class NetworkEngine:
     def link_act(self) -> np.ndarray:
         return self._links[1]
 
+    def _bind(self) -> None:
+        """Check the slot tensors as the kernels take them; called wherever
+        they are made or replaced, not per kernel call."""
+        self._slots = SlotArrays(self.path, self.rem, self.rate, self.eta,
+                                 self.due, self.active)
+
     # -- slot lifecycle ----------------------------------------------------
     def _grow(self) -> None:
         old = self.cap
@@ -169,6 +184,7 @@ class NetworkEngine:
         self.due = ext(self.due, math.inf)
         self.active = ext(self.active, False)
         self.path = ext(self.path, -1)
+        self._bind()
         self._path = np.concatenate(
             [self._path, np.full((old, self.max_links), -1, np.int64)])
         self.obj.extend([None] * old)
@@ -215,27 +231,21 @@ class NetworkEngine:
 
     def _apply_staged(self) -> None:
         """Scatter the staged alloc/release writes into the slot tensors
-        (one host-to-device copy). Every reader of the slot tensors calls
-        this first."""
+        (one host-to-device copy). The readers of the slot tensors other
+        than the kernel calls (which take the staged rows themselves,
+        :meth:`_pack`) call this first."""
         if not self._staged:
             return
         staged, self._staged = self._staged, {}
         slots = list(staged)
-        n, depth = len(slots), self.max_links
-        buf = np.empty((3 + depth, n))
+        depth = self.max_links
+        buf = np.empty((3 + depth, len(slots)))
         buf[0] = slots
         buf[1:3] = np.array(list(staged.values()), np.float64).T
         buf[3:] = self._path[slots].T
         t = self.to_device(buf)
-        idx = t[0].long()
-        self.rem[idx] = t[1]
-        # index_fill_, not `x[idx] = scalar`: the latter copies the scalar
-        # to the device and synchronises
-        self.rate.index_fill_(0, idx, 0.0)
-        self.eta.index_fill_(0, idx, math.inf)
-        self.due.index_fill_(0, idx, math.inf)
-        self.active[idx] = t[2] > 0.0
-        self.path[idx] = t[3:].T.int()
+        scatter_staged((t[0], t[1], t[2], t[3:].T), self.path, self.rem,
+                       self.rate, self.eta, self.due, self.active)
 
     def to_device(self, a: np.ndarray) -> torch.Tensor:
         """``a`` on the engine's device in one host-to-device copy (on
@@ -243,17 +253,15 @@ class NetworkEngine:
         t = torch.from_numpy(a)
         return t if self.device.type == "cpu" else t.to(self.device)
 
-    def _kernel_inputs(self, slots: list[int]
-                       ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        """``(idx, link_bw, link_act)`` on the device, in one copy; ``idx``
-        is int32, as the kernels take it."""
-        n_links = self.n_links
-        buf = np.empty(2 * n_links + len(slots))
-        buf[: 2 * n_links] = self._links.ravel()
-        buf[2 * n_links:] = slots
-        t = self.to_device(buf)
-        return (t[2 * n_links:].int(), t[:n_links],
-                t[n_links: 2 * n_links])
+    def _pack(self, slots: list[int]) -> NetInputs:
+        """One kernel call's inputs, packed: the link rows, the staged
+        alloc/release writes (which the call applies first, so they are
+        cleared here) and the index list ``slots``."""
+        staged, self._staged = self._staged, {}
+        st = list(staged)
+        vals = list(staged.values())
+        return self._inputs.pack(self._links, st, [v[0] for v in vals],
+                                 [v[1] for v in vals], self._path[st], slots)
 
     # -- state transfer ----------------------------------------------------
     def load_arrays(self, arrays: dict, members) -> None:
@@ -274,6 +282,9 @@ class NetworkEngine:
         self._path = np.array(arrays["path"], np.int64)
         self.max_links = self._path.shape[1]
         self.path = torch.tensor(self._path, dtype=torch.int32, device=dev)
+        self._bind()
+        if self._inputs.depth != self.max_links:
+            self._inputs = NetInputs(self.n_links, self.max_links, dev)
         self._links[0] = arrays["link_bw"]
         self._links[1] = arrays["link_act"]
         for li, link in enumerate(self._link_objs):
@@ -428,10 +439,11 @@ class NetworkEngine:
             return None
         slots = self._member_union(changed)
         self.stats["rerate_slots"] += len(slots)
-        self._apply_staged()
         if self._scalar_rates and len(slots) <= 4:
-            # the reference's scalar fast path: rates in Python floats
-            # (the same IEEE divisions), then the scan alone on the tensors
+            # the reference's scalar fast path (CPU only): rates in Python
+            # floats (the same IEEE divisions), written after the staged
+            # writes, then the scan alone on the tensors
+            self._apply_staged()
             bw, act = self._links
             rates = []
             for sl in slots:
@@ -446,9 +458,7 @@ class NetworkEngine:
             if slots:
                 self.rate[slots] = torch.tensor(rates, dtype=torch.float64)
             slots = []
-        idx, bw_t, act_t = self._kernel_inputs(slots)
-        eta = net_rerate(idx, self.path, self.rem, self.rate, bw_t, act_t,
-                         now)
+        eta = net_rerate(self._pack(slots), self._slots, now)
         if self.n_active == 0 or not math.isfinite(eta):
             return None
         return eta
@@ -468,8 +478,5 @@ class NetworkEngine:
         slots = self._member_union(self._dirty_links)
         self._dirty_links.clear()
         self.stats["flush_slots"] += len(slots)
-        self._apply_staged()
-        idx, bw_t, act_t = self._kernel_inputs(slots)
-        eta_min = event_engine(idx, self.path, self.rem, self.rate, self.eta,
-                               self.due, bw_t, act_t, now)
+        eta_min = event_engine(self._pack(slots), self._slots, now)
         return eta_min if math.isfinite(eta_min) else None

@@ -1,4 +1,5 @@
-// Batched event-engine flush for the net="device" network engine.
+// Batched event-engine flush for the net="device" network engine: one
+// thread-block cluster per flush.
 //
 // Replaces the Pallas TPU kernel _event_flush_kernel
 // (src/repro/kernels/event_engine/kernel.py:39, pallas_call at :74). That
@@ -13,86 +14,83 @@
 // Per dirty slot: the gather-min re-rate (share_rate.cuh), the remaining-bytes
 // reconstruction rem = max(rate_old > 0 ? rate_old*(eta-now) : rem, 0), the new
 // eta = now + rem/rate and the completion deadline due = eta - 1/rate (inf for
-// a dead slot). A second launch reduces min(eta) over the whole slot array,
-// the next NET wake-up. Everything is float64 with true divides; the build
-// passes -fmad=false so rate_old*(eta-now) and eta-1/rate are never
-// contracted into an FMA. The result is bit-identical to the oracle.
+// a dead slot). Then min(eta) over the whole slot array, the next NET
+// wake-up. Everything is float64 with true divides; the build passes
+// -fmad=false so rate_old*(eta-now) and eta-1/rate are never contracted into
+// an FMA. The result is bit-identical to the oracle.
 //
-// What bounds it: at the main-path shapes (16,384 slots, 679 dirty on
-// average) a flush moves about 200 KB, well under a microsecond of the card's
-// 3.35 TB/s, so the launch and the host round trip for the returned minimum
-// bound it, not bytes or flops. The design keeps it to two launches with no
-// allocation and no host-side staging in between, and reads the paths and the
-// index list as int32 (as the TPU kernel did: 555 links and 16,384 slots both
-// fit), so a dirty slot costs 16 B of indices at depth 3; fusing it with the
-// simulator's other per-instant device work is left to a later change.
-
-#include <cuda_runtime.h>
+// What bounds it: at the path's shapes (16,384 slots, 679 dirty on average)
+// a flush moves about 200 KB, well under a microsecond of the card's
+// 3.35 TB/s, so fixed per-call costs bound it, on the host more than on the
+// device. The design is net_rerate.cu's: one page-locked input buffer (link
+// rows, staged slot writes, int32 index list) in one copy, one cluster of
+// 8 blocks of up to 1024 threads whose phases (a) scatter the staged writes,
+// (b) flush the dirty slots, (c) reduce min(eta) across the cluster through
+// distributed shared memory, and the result in a mapped host word after one
+// stream sync. The slot arrays are plain pointers: phase (a) writes what
+// (b) and (c) read, the path rows included.
 
 #include "share_rate.cuh"
 
-__global__ void event_flush_kernel(const int32_t* __restrict__ idx,
-                                   int64_t n_idx,
-                                   const int32_t* __restrict__ path,
-                                   int64_t depth, double* __restrict__ rem,
-                                   double* __restrict__ rate,
-                                   double* __restrict__ eta,
-                                   double* __restrict__ due,
-                                   const double* __restrict__ link_bw,
-                                   const double* __restrict__ link_act,
-                                   double now) {
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n_idx) return;
-  const int64_t s = idx[i];
-  const double r_new = slot_share_rate(path + s * depth, depth, link_bw,
-                                       link_act);
-  const double r_old = rate[s];
-  double rn = r_old > 0.0 ? r_old * (eta[s] - now) : rem[s];
-  rn = rn < 0.0 ? 0.0 : rn;
-  rem[s] = rn;
-  rate[s] = r_new;
-  if (r_new > 0.0) {
-    const double e = now + rn / r_new;
-    eta[s] = e;
-    due[s] = e - 1.0 / r_new;
-  } else {
-    eta[s] = INFINITY;
-    due[s] = INFINITY;
+__global__ void __cluster_dims__(kClusterBlocks, 1, 1)
+    __launch_bounds__(kClusterThreads)
+flush_cluster_kernel(NetInputs in, int32_t* path, int64_t depth, double* rem,
+                     double* rate, double* eta, double* due, bool* active,
+                     int64_t n_slots, double now, double* out) {
+  namespace cg = cooperative_groups;
+  const int64_t tid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const int64_t n_threads = (int64_t)gridDim.x * blockDim.x;
+  scatter_staged(in, depth, path, rem, rate, eta, due, active, tid,
+                 n_threads);
+  cg::this_cluster().sync();
+  for (int64_t i = tid; i < in.n_idx; i += n_threads) {
+    const int64_t s = in.idx[i];
+    const double r_new = slot_share_rate(path + s * depth, depth, in.link_bw,
+                                         in.link_act);
+    const double r_old = rate[s];
+    double rn = r_old > 0.0 ? r_old * (eta[s] - now) : rem[s];
+    rn = rn < 0.0 ? 0.0 : rn;
+    rem[s] = rn;
+    rate[s] = r_new;
+    if (r_new > 0.0) {
+      const double e = now + rn / r_new;
+      eta[s] = e;
+      due[s] = e - 1.0 / r_new;
+    } else {
+      eta[s] = INFINITY;
+      due[s] = INFINITY;
+    }
   }
-}
-
-__global__ void eta_min_kernel(const double* __restrict__ eta, int64_t n,
-                               double* __restrict__ out) {
+  cg::this_cluster().sync();
   double m = INFINITY;
-  for (int64_t i = threadIdx.x; i < n; i += blockDim.x) {
+  for (int64_t i = tid; i < n_slots; i += n_threads) {
     const double v = eta[i];
     m = v < m ? v : m;
   }
-  m = block_min(m);
-  if (threadIdx.x == 0) *out = m;
+  cluster_min(m, out);
 }
 
-// Flush `n_idx` dirty slots in place and write min(eta) over all `n_slots`
-// slots to `eta_min` (a device scalar). Launches on `stream` of `device`;
-// returns cudaGetLastError() after the launches (0 on success).
-extern "C" int event_engine_flush(const int32_t* idx, int64_t n_idx,
-                                  const int32_t* path, int64_t depth,
-                                  double* rem, double* rate, double* eta,
-                                  double* due, int64_t n_slots,
-                                  const double* link_bw,
-                                  const double* link_act, double now,
-                                  double* eta_min, void* stream,
-                                  int device) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
+// One flush: copy the packed inputs (`host_buf`, page-locked, laid out as
+// NetInputs) to `dev_buf`, apply the `n_staged` staged slot writes, flush the
+// `n_idx` dirty slots in place, and write min(eta) over all `n_slots` slots
+// to `result` (a page-locked host word). Launches one cluster on `stream`
+// of `device` and waits for it; returns the first CUDA error (0 on success).
+extern "C" int event_engine_flush(const void* host_buf, void* dev_buf,
+                                  int64_t n_links, int64_t n_staged,
+                                  int64_t n_idx, int32_t* path, double* rem,
+                                  double* rate, double* eta, double* due,
+                                  bool* active, int64_t depth,
+                                  int64_t n_slots, double now, double* result,
+                                  void* stream, int device) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (n_idx > 0) {
-    const int64_t blocks = (n_idx + kSlotThreads - 1) / kSlotThreads;
-    event_flush_kernel<<<(unsigned)blocks, kSlotThreads, 0, st>>>(
-        idx, n_idx, path, depth, rem, rate, eta, due, link_bw, link_act, now);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  eta_min_kernel<<<1, kReduceThreads, 0, st>>>(eta, n_slots, eta_min);
-  return (int)cudaGetLastError();
+  double* out = nullptr;
+  cudaError_t err = net_call_start(
+      device, st, host_buf, dev_buf,
+      net_input_bytes(n_links, n_staged, depth, n_idx), result, &out);
+  if (err != cudaSuccess) return (int)err;
+  const NetInputs in = net_inputs(dev_buf, n_links, n_staged, depth, n_idx);
+  flush_cluster_kernel<<<kClusterBlocks, cluster_threads(n_slots), 0, st>>>(
+      in, path, depth, rem, rate, eta, due, active, n_slots, now, out);
+  err = cudaGetLastError();
+  return (int)net_call_finish(err, st);
 }

@@ -45,14 +45,15 @@ LAUNCHES: dict[str, int] = {name: 0 for name in KERNELS}
 
 _VP, _I64, _F64, _F32, _INT = (ctypes.c_void_p, ctypes.c_int64,
                                ctypes.c_double, ctypes.c_float, ctypes.c_int)
+#: the network kernels' one-call entry points: host and device input
+#: buffers, link / staged / index counts, the six slot arrays, depth, slots,
+#: now, the result word, stream, device
+_NET_CALL = [_VP, _VP, _I64, _I64, _I64, _VP, _VP, _VP, _VP, _VP, _VP, _I64,
+             _I64, _F64, _VP, _VP, _INT]
 #: C signature of each library's entry point (see the .cu sources)
 _SIGNATURES = {
-    "event_engine": ("event_engine_flush",
-                     [_VP, _I64, _VP, _I64, _VP, _VP, _VP, _VP, _I64, _VP,
-                      _VP, _F64, _VP, _VP, _INT]),
-    "net_rerate": ("net_rerate",
-                   [_VP, _I64, _VP, _I64, _VP, _VP, _I64, _VP, _VP, _F64,
-                    _VP, _VP, _INT]),
+    "event_engine": ("event_engine_flush", _NET_CALL),
+    "net_rerate": ("net_rerate", _NET_CALL),
     "strategy_plan": ("strategy_plan",
                       [_VP, _VP, _VP, _VP, _VP, _VP, _I64, _I64, _VP, _VP,
                        _VP, _INT]),
@@ -163,12 +164,13 @@ def check(name: str, err: int) -> None:
     LAUNCHES[name] += 1
 
 
-def check_args(name: str, args) -> torch.device:
-    """What the dense kernels take: ``args`` is a sequence of ``(label,
-    tensor, dtype, shape)``; every tensor must be contiguous, of its
-    dtype and shape, and on one CUDA device, which is returned."""
+def check_args(name: str, args, cuda: bool = True) -> torch.device:
+    """What the kernels take: ``args`` is a sequence of ``(label, tensor,
+    dtype, shape)``; every tensor must be contiguous, of its dtype and
+    shape, and on one device (a CUDA device unless ``cuda`` is False),
+    which is returned."""
     dev = args[0][1].device
-    if dev.type != "cuda":
+    if cuda and dev.type != "cuda":
         raise ValueError(f"{name}: the CUDA kernel takes CUDA tensors, got "
                          f"{dev}")
     for label, t, dtype, shape in args:
@@ -184,27 +186,3 @@ def check_args(name: str, args) -> torch.device:
 def stream(dev: torch.device) -> int:
     """The current CUDA stream of ``dev`` as the C entry points take it."""
     return torch.cuda.current_stream(dev).cuda_stream
-
-
-def check_inputs(name: str, idx, path, slot_arrays, link_arrays) -> None:
-    """What the kernels take: one CUDA device, contiguous tensors, int32
-    ``idx`` (1-D) and ``path`` (``(slots, depth)``), float64 per-slot and
-    per-link arrays of matching lengths."""
-    dev = slot_arrays[0].device
-    if dev.type != "cuda":
-        raise ValueError(f"{name}: the CUDA kernel takes CUDA tensors, got "
-                         f"{dev}")
-    n_slots = slot_arrays[0].numel()
-    for label, group, dtype in (("idx/path", (idx, path), torch.int32),
-                                ("slot arrays", slot_arrays, torch.float64),
-                                ("link arrays", link_arrays, torch.float64)):
-        for t in group:
-            if t.device != dev or t.dtype != dtype or not t.is_contiguous():
-                raise ValueError(f"{name}: {label} must be contiguous "
-                                 f"{dtype} on {dev}")
-    if idx.dim() != 1 or path.dim() != 2 or path.shape[0] != n_slots:
-        raise ValueError(f"{name}: want idx (n,) and path ({n_slots}, depth)"
-                         f", got {tuple(idx.shape)} and {tuple(path.shape)}")
-    if any(t.numel() != n_slots for t in slot_arrays) or \
-            link_arrays[0].numel() != link_arrays[1].numel():
-        raise ValueError(f"{name}: per-slot / per-link lengths disagree")

@@ -2,18 +2,19 @@
 
 from __future__ import annotations
 
-import torch
-
+from ..net_call import NetInputs, SlotArrays
 from .kernel import event_engine_kernel
 from .ref import event_engine_ref
 
 
-def event_engine(idx: torch.Tensor, path: torch.Tensor, rem: torch.Tensor,
-                 rate: torch.Tensor, eta: torch.Tensor, due: torch.Tensor,
-                 link_bw: torch.Tensor, link_act: torch.Tensor,
-                 now: float) -> float:
-    """Flush the dirty slots ``idx`` in place and return ``min(eta)`` on
-    the host: the plain version for CPU tensors, the CUDA kernel for CUDA
-    tensors (it raises rather than fall back)."""
-    fn = event_engine_ref if rem.device.type == "cpu" else event_engine_kernel
-    return fn(idx, path, rem, rate, eta, due, link_bw, link_act, now).item()
+def event_engine(inputs: NetInputs, slots: SlotArrays, now: float) -> float:
+    """Apply the staged rows of ``inputs``, flush its listed (dirty) slots
+    in place and return ``min(eta)`` on the host: the plain version for CPU
+    slot tensors (reading the packed buffer), the CUDA kernel for CUDA ones
+    (it raises rather than fall back)."""
+    if slots.device.type != "cpu":
+        return event_engine_kernel(inputs, slots, now)
+    idx, bw, act, staged = inputs.tensors()
+    return event_engine_ref(idx, slots.path, slots.rem, slots.rate,
+                            slots.eta, slots.due, bw, act, now, staged,
+                            active=slots.active).item()

@@ -5,7 +5,8 @@ Mirrors the float64 oracle ``event_engine_core``
 index list, plus the ``due`` deadline the reference engine derives right
 after it (``src/repro/core/network.py:541-544``). Every step is an exact
 IEEE op on float64 tensors, so on any device the result is bit-identical to
-the oracle and to the CUDA kernel.
+the oracle and to the CUDA kernel. With ``staged`` rows it first applies the
+staged alloc/release slot writes, as the kernel's first phase does.
 """
 
 from __future__ import annotations
@@ -14,7 +15,7 @@ import math
 
 import torch
 
-from ..share import share_rates
+from ..share import scatter_staged, share_rates
 
 #: a transfer is done once less than this many bytes remain
 _DONE_EPS = 1.0
@@ -24,9 +25,13 @@ def event_engine_ref(idx: torch.Tensor, path: torch.Tensor,
                      rem: torch.Tensor, rate: torch.Tensor,
                      eta: torch.Tensor, due: torch.Tensor,
                      link_bw: torch.Tensor, link_act: torch.Tensor,
-                     now: float) -> torch.Tensor:
+                     now: float, staged=None, *,
+                     active=None) -> torch.Tensor:
     """Flush the slots ``idx`` in place and return ``min(eta)`` over the
     whole slot array as a 0-d tensor (``inf`` when no slot is live).
+    ``staged`` (``(slot, rem, active, path_rows)``, see
+    :func:`..share.scatter_staged`) is applied first; it needs the
+    ``active`` slot tensor too.
 
     Per slot: re-rate (gather-min of link shares), reconstruct the
     remaining bytes from the cached ``(rate, eta)`` pair
@@ -34,6 +39,8 @@ def event_engine_ref(idx: torch.Tensor, path: torch.Tensor,
     rate), then the new completion time ``eta = now + rem / rate`` and the
     deadline ``due = eta - 1 / rate`` (both ``inf`` for a dead slot).
     """
+    if staged is not None:
+        scatter_staged(staged, path, rem, rate, eta, due, active)
     if idx.numel():
         rate_new = share_rates(idx, path, link_bw, link_act)
         rate_old = rate[idx]

@@ -2,27 +2,13 @@
 
 from __future__ import annotations
 
-import torch
-
-from .. import _cuda
+from ..net_call import NetInputs, SlotArrays, launch
 
 
-def net_rerate_kernel(idx: torch.Tensor, path: torch.Tensor,
-                      rem: torch.Tensor, rate: torch.Tensor,
-                      link_bw: torch.Tensor, link_act: torch.Tensor,
-                      now: float) -> torch.Tensor:
-    """Same contract as :func:`.ref.net_rerate_ref`, on CUDA tensors:
-    re-rates the slots ``idx`` in place on the current stream and returns
-    the next completion time as a 0-d device tensor (no
-    synchronisation)."""
-    _cuda.check_inputs("net_rerate", idx, path, (rem, rate),
-                       (link_bw, link_act))
-    dev = rem.device
-    out = torch.empty((), dtype=torch.float64, device=dev)
-    err = _cuda.entry_point("net_rerate")(
-        idx.data_ptr(), idx.numel(), path.data_ptr(), path.shape[1],
-        rem.data_ptr(), rate.data_ptr(), rem.numel(), link_bw.data_ptr(),
-        link_act.data_ptr(), float(now), out.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream, dev.index)
-    _cuda.check("net_rerate", err)
-    return out
+def net_rerate_kernel(inputs: NetInputs, slots: SlotArrays,
+                      now: float) -> float:
+    """Same contract as :func:`.ref.net_rerate_ref` on the packed inputs:
+    applies the staged rows, re-rates the listed slots of ``slots`` (CUDA
+    tensors) in place and returns the next completion time. One copy up,
+    one launch of one cluster, one stream sync."""
+    return launch("net_rerate", inputs, slots, now)

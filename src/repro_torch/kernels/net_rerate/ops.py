@@ -2,17 +2,19 @@
 
 from __future__ import annotations
 
-import torch
-
+from ..net_call import NetInputs, SlotArrays
 from .kernel import net_rerate_kernel
 from .ref import net_rerate_ref
 
 
-def net_rerate(idx: torch.Tensor, path: torch.Tensor, rem: torch.Tensor,
-               rate: torch.Tensor, link_bw: torch.Tensor,
-               link_act: torch.Tensor, now: float) -> float:
-    """Re-rate the slots ``idx`` in place and return the next completion
-    time on the host: the plain version for CPU tensors, the CUDA kernel
-    for CUDA tensors (it raises rather than fall back)."""
-    fn = net_rerate_ref if rem.device.type == "cpu" else net_rerate_kernel
-    return fn(idx, path, rem, rate, link_bw, link_act, now).item()
+def net_rerate(inputs: NetInputs, slots: SlotArrays, now: float) -> float:
+    """Apply the staged rows of ``inputs``, re-rate its listed slots in
+    place and return the next completion time on the host: the plain
+    version for CPU slot tensors (reading the packed buffer), the CUDA
+    kernel for CUDA ones (it raises rather than fall back)."""
+    if slots.device.type != "cpu":
+        return net_rerate_kernel(inputs, slots, now)
+    idx, bw, act, staged = inputs.tensors()
+    return net_rerate_ref(idx, slots.path, slots.rem, slots.rate, bw, act,
+                          now, staged, eta=slots.eta, due=slots.due,
+                          active=slots.active).item()

@@ -6,7 +6,9 @@ Mirrors the float64 oracle ``net_rerate_ref``
 uses it: re-rate the union batch of slots in place, then scan the *whole*
 slot array for the earliest ``now + rem / rate`` over live slots
 (``src/repro/core/network.py:439-444``). Exact IEEE ops on float64
-tensors: bit-identical to the oracle and to the CUDA kernel.
+tensors: bit-identical to the oracle and to the CUDA kernel. With
+``staged`` rows it first applies the staged alloc/release slot writes, as
+the kernel's first phase does.
 """
 
 from __future__ import annotations
@@ -15,15 +17,20 @@ import math
 
 import torch
 
-from ..share import share_rates
+from ..share import scatter_staged, share_rates
 
 
 def net_rerate_ref(idx: torch.Tensor, path: torch.Tensor, rem: torch.Tensor,
                    rate: torch.Tensor, link_bw: torch.Tensor,
-                   link_act: torch.Tensor, now: float) -> torch.Tensor:
+                   link_act: torch.Tensor, now: float, staged=None, *,
+                   eta=None, due=None, active=None) -> torch.Tensor:
     """Re-rate the slots ``idx`` in place and return the next completion
     time over all live slots (``rate > 0``) as a 0-d tensor (``inf`` when
-    none is live)."""
+    none is live). ``staged`` (``(slot, rem, active, path_rows)``, see
+    :func:`..share.scatter_staged`) is applied first; it needs the
+    ``eta``, ``due`` and ``active`` slot tensors too."""
+    if staged is not None:
+        scatter_staged(staged, path, rem, rate, eta, due, active)
     if idx.numel():
         rate[idx] = share_rates(idx, path, link_bw, link_act)
     if rate.numel() == 0:

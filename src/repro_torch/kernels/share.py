@@ -32,3 +32,30 @@ def share_rates(idx: torch.Tensor, path: torch.Tensor,
         rate = torch.minimum(rate, shares[p[:, d]])
     # all-padding rows reduce to the bare sentinel: dead, rate 0
     return torch.where(torch.isfinite(rate), rate, 0.0)
+
+
+def scatter_staged(staged, path: torch.Tensor, rem: torch.Tensor,
+                   rate: torch.Tensor, eta: torch.Tensor, due: torch.Tensor,
+                   active: torch.Tensor) -> None:
+    """Apply staged alloc/release slot writes in place, as the kernels'
+    phase (a) does (``scatter_staged`` in ``csrc/share_rate.cuh``):
+    ``staged`` is ``(slot, rem, active, path_rows)``: slot ids, float64
+    rem, active flags (nonzero is active) and ``(n, depth)`` path rows, of
+    any dtype that holds their values exactly (the kernels' packed buffer
+    has them int32, ``NetworkEngine._apply_staged`` float64); each slot
+    gets its rem, active flag and path row, rate 0 and eta/due inf
+    (unrated). The one scatter of the staged rows in PyTorch."""
+    slot, st_rem, st_active, st_path = staged
+    if not slot.numel():
+        return
+    if eta is None or due is None or active is None:
+        raise ValueError("staged rows need the eta, due and active tensors")
+    i = slot.long()
+    rem[i] = st_rem
+    # index_fill_, not `x[i] = scalar`: the latter copies the scalar to the
+    # device and synchronises (no CUDA-graph capture)
+    rate.index_fill_(0, i, 0.0)
+    eta.index_fill_(0, i, math.inf)
+    due.index_fill_(0, i, math.inf)
+    active[i] = st_active != 0
+    path[i] = st_path.to(path.dtype)

@@ -13,7 +13,9 @@ layer's share of the wall time; what no timer covers is the event loop's
 own bookkeeping. With ``--trace-jobs N`` > 0 it then runs N jobs under
 ``torch.profiler`` and prints the device's busy time (the sum of the CUDA
 kernels' durations: one stream, so they do not overlap), busy time per
-flush, and the top device kernels and host operators. The timers wrap
+flush, the network kernels' launches beside the network calls (one
+cluster launch per re-rate or flush), and the top device kernels and
+host operators. The timers wrap
 methods of this process only; the package is unchanged.
 """
 
@@ -151,10 +153,15 @@ def device_trace(spec, n_jobs: int, dev: torch.device) -> None:
                 if e.device_type == DeviceType.CUDA]
     busy_us = sum(t for t, _, _ in dev_rows)
     flushes = r.net_stats["flush_passes"]
+    # network kernel calls: a flush each (net="device"), else a re-rate
+    net_calls = flushes or r.net_stats["rerate_calls"]
+    net_kernels = sum(c for _, key, c in dev_rows if "cluster_kernel" in key)
     print(f"[trace] {spec.name} jobs={n_jobs} device={device_name(dev)} "
           f"wall_s_under_profiler={wall!r} device_busy_s={busy_us / 1e6!r} "
           f"busy_share={busy_us / 1e6 / wall:.4%} flushes={flushes} "
-          f"device_us_per_flush={busy_us / max(1, flushes):.2f}")
+          f"device_us_per_flush={busy_us / max(1, flushes):.2f} "
+          f"net_calls={net_calls} network_kernel_launches={net_kernels} "
+          f"device_ops={sum(c for _, _, c in dev_rows)}")
     for t, key, count in sorted(dev_rows, reverse=True)[:12]:
         print(f"[trace]   device {key[:60]:<60} total_us={t:12.1f} "
               f"count={count}")

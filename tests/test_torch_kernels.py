@@ -6,9 +6,13 @@ be bit-identical (``np.array_equal``, infs in the same places) to
 ``event_engine_core`` / ``net_rerate_ref`` of ``repro.kernels`` applied the
 way the reference engine applies them: to the dirty-slot subset, leaving
 every other slot untouched. Inputs are made with numpy from a seed and
-hold a mix of released, fresh and carried slots. The CUDA kernels
-themselves are held against the plain versions on the card
-(``-m gpu``; ``chip_smoke.py`` does the same at the main path's shapes).
+hold a mix of released, fresh and carried slots. The network kernels take
+the engine's staged alloc/release slot writes with each call; with them,
+the plain versions must equal both the old composition (the engine's
+scatter, then the plain version without staged rows) and the oracles on
+the scattered state. The CUDA kernels themselves are held against the
+plain versions on the card (``-m gpu``; ``chip_smoke.py`` does the same at
+the main path's shapes).
 """
 
 import math
@@ -22,12 +26,15 @@ from repro.kernels.net_rerate import net_rerate_ref as oracle_rerate
 from repro.kernels.st_cost import st_cost_ref as oracle_st_cost
 from repro.kernels.strategy_plan import strategy_plan_ref as oracle_plan
 from repro.kernels.value_score import value_score_ref as oracle_value
+from repro_torch.core import GridTopology, NetworkEngine
 from repro_torch.kernels import _cuda
 from repro_torch.kernels.event_engine import (event_engine,
                                               event_engine_kernel,
                                               event_engine_ref)
+from repro_torch.kernels.net_call import NetInputs, SlotArrays
 from repro_torch.kernels.net_rerate import (net_rerate, net_rerate_kernel,
                                             net_rerate_ref)
+from repro_torch.kernels.share import scatter_staged
 from repro_torch.kernels.st_cost import st_cost_kernel, st_cost_ref
 from repro_torch.kernels.strategy_plan import (strategy_plan_kernel,
                                                strategy_plan_ref)
@@ -72,6 +79,27 @@ def _equal(a: np.ndarray, b: np.ndarray) -> bool:
     return a.shape == b.shape and np.array_equal(a, b)
 
 
+NO_STAGED = (np.zeros(0, np.int32), np.zeros(0), np.zeros(0, bool))
+
+
+def _slot_arrays(st: dict, device="cpu") -> SlotArrays:
+    """The kernels' slot tensors from a numpy state (``active`` where the
+    path has a link)."""
+    t = {k: torch.tensor(v, device=device) for k, v in st.items()}
+    active = torch.tensor((st["path"] >= 0).any(1), device=device)
+    return SlotArrays(t["path"], t["rem"], t["rate"], t["eta"], t["due"],
+                      active)
+
+
+def _inputs(bw, act, idx, depth, staged=NO_STAGED, st_path=None,
+            device="cpu") -> NetInputs:
+    slot, rem, flag = staged
+    if st_path is None:
+        st_path = np.full((len(slot), depth), -1, np.int32)
+    return NetInputs(len(bw), depth, device).pack(
+        np.stack([bw, act]), slot, rem, flag, st_path, idx)
+
+
 @pytest.mark.parametrize("depth", [2, 3])
 @pytest.mark.parametrize("slots", SIZES)
 @pytest.mark.parametrize("frac", [0.0, 0.3, 1.0])
@@ -93,12 +121,11 @@ def test_event_engine_plain_matches_oracle(slots, depth, frac):
             live, eta_new - 1.0 / np.where(live, rate_new, 1.0), np.inf)
     want_min = float(want["eta"].min()) if slots else math.inf
 
-    got = {k: _t(v) for k, v in st.items()}
-    eta_min = event_engine(_t(idx), got["path"], got["rem"], got["rate"],
-                           got["eta"], got["due"], _t(bw), _t(act), now)
+    got = _slot_arrays(st)
+    eta_min = event_engine(_inputs(bw, act, idx, depth), got, now)
     assert eta_min == want_min
     for k in ("rem", "rate", "eta", "due", "path"):
-        assert _equal(got[k].numpy(), want[k]), k
+        assert _equal(getattr(got, k).numpy(), want[k]), k
 
 
 @pytest.mark.parametrize("depth", [2, 3])
@@ -116,11 +143,10 @@ def test_net_rerate_plain_matches_oracle(slots, depth, frac):
     want = (float(np.min(now + st["rem"][live] / rate[live]))
             if live.any() else math.inf)
 
-    got = _t(st["rate"])
-    eta = net_rerate(_t(idx), _t(st["path"]), _t(st["rem"]), got, _t(bw),
-                     _t(act), now)
+    got = _slot_arrays(st)
+    eta = net_rerate(_inputs(bw, act, idx, depth), got, now)
     assert eta == want
-    assert _equal(got.numpy(), rate)
+    assert _equal(got.rate.numpy(), rate)
 
 
 def test_full_recompute_matches_oracle_rates():
@@ -143,15 +169,13 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     """A CUDA kernel takes CUDA tensors only: no silent CPU route, and
     nothing counted as a launch."""
     st, bw, act, now = _state(0, 8, 3)
-    t = {k: _t(v) for k, v in st.items()}
-    idx = _t(np.arange(8, dtype=np.int32))
+    slots = _slot_arrays(st)
+    inputs = _inputs(bw, act, np.arange(8), 3)
     before = dict(_cuda.LAUNCHES)
     with pytest.raises(ValueError, match="CUDA tensors"):
-        event_engine_kernel(idx, t["path"], t["rem"], t["rate"], t["eta"],
-                            t["due"], _t(bw), _t(act), now)
+        event_engine_kernel(inputs, slots, now)
     with pytest.raises(ValueError, match="CUDA tensors"):
-        net_rerate_kernel(idx, t["path"], t["rem"], t["rate"], _t(bw),
-                          _t(act), now)
+        net_rerate_kernel(inputs, slots, now)
     assert _cuda.LAUNCHES == before
 
 
@@ -166,37 +190,255 @@ def test_kernel_sources_and_build_names():
     assert (_cuda.CSRC / "share_rate.cuh").exists()
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("n_dirty", [0, 679, 13528])
-def test_cuda_kernels_match_plain_versions(n_dirty):
-    """On the card: each kernel bit-equal to its plain version."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card")
-    st, bw, act, now = _state(n_dirty, 16384, 3)
-    idx = _dirty(n_dirty, 16384, n_dirty / 16384)
-    dev = torch.device("cuda", 0)
-    k = {key: torch.tensor(v, device=dev) for key, v in st.items()}
-    p = {key: v.clone() for key, v in k.items()}
-    cuda = lambda a: torch.tensor(a, device=dev)  # noqa: E731
-    a = event_engine_kernel(cuda(idx), k["path"], k["rem"], k["rate"],
-                            k["eta"], k["due"], cuda(bw), cuda(act), now)
-    b = event_engine_ref(cuda(idx), p["path"], p["rem"], p["rate"],
-                         p["eta"], p["due"], cuda(bw), cuda(act), now)
-    assert torch.equal(a, b)
-    for key in ("rem", "rate", "eta", "due"):
-        assert torch.equal(k[key], p[key]), key
-    a = net_rerate_kernel(cuda(idx), k["path"], k["rem"], k["rate"],
-                          cuda(bw), cuda(act), now)
-    b = net_rerate_ref(cuda(idx), p["path"], p["rem"], p["rate"], cuda(bw),
-                       cuda(act), now)
-    assert torch.equal(a, b)
-    assert torch.equal(k["rate"], p["rate"])
+STAGED_CASES = ("none", "releases", "staged_in_idx", "empty_idx",
+                "all_dead")
+
+
+def _staged_case(case: str, slots: int, depth: int, seed: int):
+    """A state and one call's inputs for ``case``: ``(st, bw, act, now,
+    idx, (slot, rem, active), st_path)``. Staged slots are distinct, and so
+    are listed ones; releases are never listed (a released slot leaves its
+    links' member lists), allocs may be."""
+    st, bw, act, now = _state(seed, slots, depth)
+    rng = np.random.default_rng(seed + 17)
+    if case == "all_dead":
+        # every slot released and unrated: no live slot, minimum inf
+        st["path"][:] = -1
+        st["rem"][:] = 0.0
+        st["rate"][:] = 0.0
+        st["eta"][:] = np.inf
+        st["due"][:] = np.inf
+    perm = rng.permutation(slots).astype(np.int32)
+    n_st = 0 if case == "none" else max(1, slots // 8)
+    staged, rest = perm[:n_st], perm[n_st:]
+    alloc = np.zeros(n_st, bool) if case in ("releases", "all_dead") \
+        else rng.random(n_st) < 0.6
+    rem = np.where(alloc, rng.integers(1, 1000, n_st) * 5e5, 0.0)
+    st_path = np.full((n_st, depth), -1, np.int32)
+    for j in np.flatnonzero(alloc):
+        k = int(rng.integers(1, depth + 1))
+        st_path[j, :k] = rng.choice(N_LINKS, k, replace=False)
+    listed = rest[: len(rest) // 3]
+    if case == "staged_in_idx":
+        listed = np.concatenate([staged[alloc], listed])
+    elif case == "empty_idx":
+        listed = listed[:0]
+    elif case == "all_dead":
+        listed = rest[: len(rest) // 2]
+    return (st, bw, act, now, rng.permutation(listed).astype(np.int32),
+            (staged, rem, alloc), st_path)
+
+
+def _scatter_np(st: dict, active: np.ndarray, staged, st_path) -> None:
+    """The engine's staged writes, in numpy (the oracle side)."""
+    slot, rem, flag = staged
+    st["rem"][slot] = rem
+    st["rate"][slot] = 0.0
+    st["eta"][slot] = np.inf
+    st["due"][slot] = np.inf
+    active[slot] = flag
+    st["path"][slot] = st_path
+
+
+def _old_composition(kernel: str, st: dict, bw, act, now, idx, staged,
+                     st_path) -> tuple[SlotArrays, float]:
+    """The engine's composition before the kernels took staged rows: the
+    scatter (``_apply_staged``'s, ``share.scatter_staged``), then the plain
+    version without staged rows."""
+    s = _slot_arrays(st)
+    scatter_staged(tuple(torch.tensor(a) for a in (*staged, st_path)),
+                   s.path, s.rem, s.rate, s.eta, s.due, s.active)
+    if kernel == "net_rerate":
+        m = net_rerate_ref(_t(idx), s.path, s.rem, s.rate, _t(bw), _t(act),
+                           now)
+    else:
+        m = event_engine_ref(_t(idx), s.path, s.rem, s.rate, s.eta, s.due,
+                             _t(bw), _t(act), now)
+    return s, m.item()
+
+
+@pytest.mark.parametrize("slots", [64, 1000])
+@pytest.mark.parametrize("depth", [2, 3])
+@pytest.mark.parametrize("case", STAGED_CASES)
+@pytest.mark.parametrize("kernel", ["net_rerate", "event_engine"])
+def test_staged_rows_match_composition_and_oracle(kernel, case, depth,
+                                                  slots):
+    """The op with staged rows (the engine's call path, plain version on
+    the CPU) equals (i) the old composition and (ii) the numpy oracle on
+    the scattered state, bit for bit, returned minimum included."""
+    st, bw, act, now, idx, staged, st_path = _staged_case(
+        case, slots, depth, slots + depth)
+    got = _slot_arrays(st)
+    op = net_rerate if kernel == "net_rerate" else event_engine
+    got_min = op(_inputs(bw, act, idx, depth, staged, st_path), got, now)
+    old, old_min = _old_composition(kernel, st, bw, act, now, idx, staged,
+                                    st_path)
+    keys = ("path", "rem", "rate", "eta", "due", "active")
+    assert got_min == old_min
+    for k in keys:
+        assert torch.equal(getattr(got, k), getattr(old, k)), k
+
+    want = {k: v.copy() for k, v in st.items()}
+    want["active"] = (st["path"] >= 0).any(1)
+    _scatter_np(want, want["active"], staged, st_path)
+    live_idx = idx
+    if kernel == "net_rerate":
+        if live_idx.size:
+            want["rate"][live_idx], _ = oracle_rerate(
+                want["path"][live_idx], want["rem"][live_idx], bw, act, now)
+        live = want["rate"] > 0.0
+        want_min = (float(np.min(now + want["rem"][live] / want["rate"][live]))
+                    if live.any() else math.inf)
+    else:
+        if live_idx.size:
+            rem_now, rate_new, eta_new, _ = event_engine_core(
+                want["path"][live_idx], want["rem"][live_idx],
+                want["rate"][live_idx], want["eta"][live_idx], bw, act, now)
+            ok = rate_new > 0.0
+            want["rem"][live_idx] = rem_now
+            want["rate"][live_idx] = rate_new
+            want["eta"][live_idx] = eta_new
+            want["due"][live_idx] = np.where(
+                ok, eta_new - 1.0 / np.where(ok, rate_new, 1.0), np.inf)
+        want_min = float(want["eta"].min())
+    assert got_min == want_min
+    if case == "all_dead":
+        assert got_min == math.inf
+    for k in keys:
+        assert _equal(getattr(got, k).numpy(), want[k]), k
+
+
+@pytest.mark.parametrize("n_staged,n_idx", [(0, 0), (1, 0), (0, 5000),
+                                            (300, 20000)])
+def test_net_inputs_layout_round_trip(n_staged, n_idx):
+    """What ``pack`` writes, ``arrays`` reads back (the layout the kernels
+    read, ``NetInputs`` in ``csrc/share_rate.cuh``), across buffer growth;
+    the byte count matches the C side's ``net_input_bytes``."""
+    rng = np.random.default_rng(n_staged + n_idx)
+    depth, n_links = 3, 555
+    inputs = NetInputs(n_links, depth)
+    for rnd in range(2):
+        links = rng.uniform(0, 1e8, (2, n_links))
+        slot = rng.permutation(40000)[:n_staged].astype(np.int32)
+        rem = rng.uniform(0, 1e9, n_staged)
+        flag = rng.random(n_staged) < 0.5
+        path = rng.integers(-1, n_links, (n_staged, depth))
+        idx = list(rng.permutation(40000)[:n_idx])
+        inputs.pack(links, list(slot), list(rem), list(flag), path, idx)
+        got_idx, bw, act, (g_slot, g_rem, g_flag, g_path) = inputs.arrays()
+        assert np.array_equal(got_idx, idx) and got_idx.dtype == np.int32
+        assert np.array_equal(bw, links[0]) and np.array_equal(act, links[1])
+        assert np.array_equal(g_slot, slot) and np.array_equal(g_rem, rem)
+        assert np.array_equal(g_flag != 0, flag)
+        assert np.array_equal(g_path, path) and g_path.dtype == np.int32
+        nbytes = 8 * (2 * n_links + n_staged) + 4 * (n_staged * (2 + depth)
+                                                     + n_idx)
+        assert inputs.capacity >= nbytes
+
+
+def test_net_inputs_refuse_wrong_shapes():
+    inputs = NetInputs(4, 3)
+    with pytest.raises(ValueError, match="path rows"):
+        inputs.pack(np.zeros((2, 4)), [1], [0.0], [False],
+                    np.zeros((1, 2), np.int32), [])
+    with pytest.raises(ValueError, match="links"):
+        inputs.pack(np.zeros((2, 5)), [], [], [], np.zeros((0, 3)), [])
+    st, _, _, _ = _state(0, 8, 3)
+    t = {k: _t(v) for k, v in st.items()}
+    with pytest.raises(ValueError, match="rem"):
+        SlotArrays(t["path"], t["rem"].float(), t["rate"], t["eta"],
+                   t["due"], torch.zeros(8, dtype=torch.bool))
 
 
 def _card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     return torch.device("cuda", 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("slots", [200, 3000, 16383, 40000])
+@pytest.mark.parametrize("n_dirty", [0, 1, 679, 13528])
+def test_cuda_kernels_match_plain_versions(n_dirty, slots):
+    """On the card: each kernel, with staged rows (a release, allocs, one
+    of them also listed), bit-equal to its plain version on the same packed
+    inputs, at slot counts that are not a multiple of the cluster's
+    threads, with blocks from one warp (200 slots) to 1,024 threads."""
+    dev = _card()
+    st, bw, act, now = _state(n_dirty + slots, slots, 3)
+    rng = np.random.default_rng(n_dirty)
+    perm = rng.permutation(slots).astype(np.int32)
+    staged = perm[:3]
+    idx = np.concatenate([staged[1:2], perm[3: 3 + max(0, n_dirty - 1)]])
+    idx = idx[:n_dirty]
+    st_path = np.array([[-1, -1, -1], [5, 40, -1], [7, -1, -1]], np.int32)
+    rows = (staged, np.array([0.0, 4e8, 1e6]), np.array([False, True, True]))
+    for name, kern, ref in (("net_rerate", net_rerate_kernel, net_rerate_ref),
+                            ("event_engine", event_engine_kernel,
+                             event_engine_ref)):
+        k, p = _slot_arrays(st, dev), _slot_arrays(st, dev)
+        inputs = _inputs(bw, act, idx, 3, rows, st_path, device=dev)
+        before = _cuda.LAUNCHES[name]
+        a = kern(inputs, k, now)
+        assert _cuda.LAUNCHES[name] == before + 1
+        i, b_, a_, staged_t = inputs.tensors(dev)
+        if name == "net_rerate":
+            b = net_rerate_ref(i, p.path, p.rem, p.rate, b_, a_, now,
+                               staged_t, eta=p.eta, due=p.due,
+                               active=p.active)
+        else:
+            b = event_engine_ref(i, p.path, p.rem, p.rate, p.eta, p.due, b_,
+                                 a_, now, staged_t, active=p.active)
+        assert a == b.item(), name
+        for key in ("path", "rem", "rate", "eta", "due", "active"):
+            assert torch.equal(getattr(k, key), getattr(p, key)), (name, key)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("backend", ["numpy", "device"])
+def test_cuda_engine_matches_cpu_engine_across_growth(backend):
+    """On the card: an engine history that grows the slot arrays (64 ->
+    256 slots) between kernel calls, several staged writes per call,
+    record for record equal to the same history on the CPU."""
+    import types
+
+    dev = _card()
+    kw = dict(lan_bandwidth=100.0, wan_bandwidth=10.0, storage_capacity=1e10,
+              tier_fanouts=(4, 13), uplink_bandwidths=(10.0,))
+    engines = [NetworkEngine(GridTopology(0, 0, **kw), backend, device=d)
+               for d in (dev, "cpu")]
+    rng = np.random.default_rng(5)
+    live: list = []
+    now = 0.0
+    for step in range(400):
+        for e in engines:
+            e.advance(now)
+        changed: set = set()
+        for _ in range(int(rng.integers(1, 4))):
+            if rng.random() < 0.7 or not live:
+                links = engines[1].topology.link_ids_for(
+                    int(rng.integers(52)), int(rng.integers(52)))
+                trs = [types.SimpleNamespace(slot=-1) for _ in engines]
+                size = float(rng.integers(1, 2000)) * 5e5
+                slots = {e.alloc(t, size, links)
+                         for e, t in zip(engines, trs)}
+                assert len(slots) == 1
+                live.append(trs)
+            else:
+                trs = live.pop(int(rng.integers(len(live))))
+                links = engines[0].release(trs[0])
+                assert engines[1].release(trs[1]) == links
+            changed.update(links)
+        got = [e.rerate(sorted(changed), now) for e in engines]
+        assert got[0] == got[1], step
+        if backend == "device":
+            got = [e.flush(now) for e in engines]
+            assert got[0] == got[1], step
+        a, b = (e.arrays() for e in engines)
+        for key in a:
+            assert np.array_equal(a[key], b[key]), (step, key)
+        now += float(rng.exponential(5.0))
+    assert engines[0].cap == engines[1].cap >= 256
 
 
 def _plan_inputs(seed: int, sites: int, pairs: int, served: bool):

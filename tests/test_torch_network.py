@@ -88,6 +88,58 @@ def test_identical_histories(backend, shape):
     _history(backend, topos, 300, seed=len(shape) * 7 + len(backend))
 
 
+def _burst_history(backend: str, topos, n_steps: int, seed: int) -> None:
+    """Like :func:`_history`, but one to four starts and finishes between
+    two re-rates (so a kernel call carries several staged slot writes, a
+    slot released and handed out again among them) and no ``advance``
+    between them, checked after every re-rate and flush."""
+    rt, pt = topos
+    ref, port = RefEngine(rt, backend), NetworkEngine(pt, backend,
+                                                      device="cpu")
+    rng = np.random.default_rng(seed)
+    live: list[tuple[object, object]] = []
+    now = 0.0
+    n = rt.n_sites
+    for step in range(n_steps):
+        ref.advance(now)
+        port.advance(now)
+        changed: dict[int, None] = {}
+        for _ in range(int(rng.integers(1, 5))):
+            if rng.random() < 0.6 or not live:
+                links = rt.link_ids_for(int(rng.integers(n)),
+                                        int(rng.integers(n)))
+                a, b = (types.SimpleNamespace(slot=-1) for _ in range(2))
+                size = float(rng.integers(1, 2000)) * 5e5
+                assert ref.alloc(a, size, links) == port.alloc(b, size,
+                                                               links)
+                live.append((a, b))
+            else:
+                a, b = live.pop(int(rng.integers(len(live))))
+                links = ref.release(a)
+                assert port.release(b) == links
+            changed.update(dict.fromkeys(links))
+        assert len(port._staged) >= 1
+        eta = (ref.rerate(tuple(changed), now),
+               port.rerate(tuple(changed), now))
+        assert eta[0] == eta[1], step
+        if ref.batched:
+            assert ref.flush(now) == port.flush(now), step
+        _assert_same(ref, port, (backend, step))
+        assert not port._staged or port.batched
+        now += float(rng.exponential(20.0))
+
+
+@pytest.mark.parametrize("backend", ["numpy", "pallas", "device"])
+@pytest.mark.parametrize("shape", ["paper", "deep"])
+def test_burst_histories_carry_staged_rows(backend, shape):
+    """Several staged alloc/release writes per kernel call: the call
+    applies them (no separate scatter first) and both engines stay equal
+    record for record."""
+    topos = (_topos((4, 13), (10.0,)) if shape == "paper"
+             else _topos((3, 3, 6), (100.0, 10.0)))
+    _burst_history(backend, topos, 150, seed=len(shape) + 3 * len(backend))
+
+
 def test_topmost_paths_match():
     """The legacy topmost-uplink model runs the numpy engine over
     truncated paths: same arrays on both engines."""
