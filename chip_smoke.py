@@ -53,10 +53,13 @@ Phases, each raising on failure (the script then exits non-zero):
    hd 256; global, local, float32 and softcap forms) and decode (one query
    against the 1,040-slot cache; global and local in bf16, global in
    float32), ``selective_scan`` for the falcon-mamba-7b
-   prefill (Bz 4, S 1,024, Di 8,192, N 16) and decode (S 1 from a state),
+   prefill (Bz 4, S 1,024, Di 8,192, N 16) and decode (S 1 from a state;
+   timed cold, cycling over ``MAMBA_LAYERS`` states, warm beside it),
    each against its plain version within ``TOL`` (ten times for the scan),
    with device, wrapper, plain and ``scaled_dot_product_attention`` times
-   beside the bound, and the ``flash_attention`` route each case takes
+   beside the bound (bytes, operations, or for the scan the exponentials
+   at the special-function rate ``SFU_EXPS``, whichever is slowest), and
+   the ``flash_attention`` route each case takes
    (``plan_launch``: bf16 prefill on the tensor cores, float32 prefill on
    the CUDA cores, decode as splits of the key range and a merge);
 9. serving (``SERVE``): ``repro_torch.launch.serve`` at full width for
@@ -139,6 +142,10 @@ ATTN_CASES = (
 GEMMA_B, GEMMA_H, GEMMA_KV, GEMMA_HD, CACHE_LEN = 4, 4, 1, 256, 1040
 SCAN_CASES = (("prefill f32", 1024), ("decode S=1 f32", 1))
 MAMBA_BZ, MAMBA_DI, MAMBA_N = 4, 8192, 16
+#: falcon-mamba-7b's layers: the cold decode timing cycles over one state
+#: set per layer (~5 MB each, ~330 MB in all, above the 50 MB L2)
+MAMBA_LAYERS = 64
+L2_BYTES = 50 * 2 ** 20       # H100 SXM
 TOL = {"bfloat16": 2e-2, "float32": 2e-5}   # tests/test_kernels.py
 #: Serving runs (phase 9): arch, its kernel, requests, prompt, new tokens.
 SERVE = (("gemma3-1b", "flash_attention"), ("falcon-mamba-7b",
@@ -151,6 +158,9 @@ HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
 FP64_FLOPS = 34e12            # H100 SXM float64, outside the tensor cores
 BF16_FLOPS = 989e12           # H100 SXM bf16, dense tensor cores
 FP32_FLOPS = 67e12            # H100 SXM float32, outside the tensor cores
+#: exponentials a second on the special-function units: 16 a clock per SM,
+#: 132 SMs, at the clock the float32 figure assumes (67e12 / (132 x 256))
+SFU_EXPS = 4.18e12
 ROUNDS, CALLS = 20, 50        # timing: rounds of back-to-back calls
 
 
@@ -381,7 +391,7 @@ def net_kernel_case(scenario: str, seed: int, n_slots: int, n_dirty: int,
         # as the old engine called it: the inputs copied up, then the op
         rec["plain_wrapper_ms"] = wrapper_ms(
             lambda: plain(p, *inputs.tensors(dev)))
-        rec["bound_ms"], rec["bound_by"] = _bound(bytes_, flops)
+        rec["bound_ms"], rec["bound_by"] = roofline(bytes_, flops, FP64_FLOPS)
         print(f"[kernels] {name} {rec['shape']} bit-equal; device: "
               f"kernel={1e3 * rec['ms']!r}us copy={1e3 * rec['copy_ms']!r}us "
               f"device_ops_per_call={rec['device_ops_per_call']!r} "
@@ -519,11 +529,6 @@ def _equal_or_raise(name: str, got, want) -> float:
     return err
 
 
-def _bound(bytes_: float, flops: float) -> tuple[float, str]:
-    b, f = bytes_ / HBM_BYTES_PER_S, flops / FP64_FLOPS
-    return 1e3 * max(b, f), ("bytes" if b >= f else "operations")
-
-
 def _grid(name: str, dev, seed: int):
     """The topology of a registered scenario and a network engine on
     ``dev`` with random link occupancy."""
@@ -639,7 +644,7 @@ def phase_dense_kernels(dev) -> dict:
     out: dict = {}
 
     def record(name, shape, kern, plain, err, bytes_, flops, plain_calls):
-        bound_ms, bound_by = _bound(bytes_, flops)
+        bound_ms, bound_by = roofline(bytes_, flops, FP64_FLOPS)
         r = dict(shape=shape, max_abs_err=err, ms=device_ms(kern),
                  plain_ms=device_ms(plain, rounds=5, calls=plain_calls),
                  wrapper_ms=wrapper_ms(kern),
@@ -796,11 +801,39 @@ def phase_paths(dev, shapes: dict) -> dict:
     return launches
 
 
+def roofline(bytes_: float, flops: float, peak: float,
+             exps: float = 0) -> tuple[float, str]:
+    """The least time of one call, in ms, and the term that sets it: the
+    bytes over the memory rate, the operations over the peak rate of their
+    type, or the exponentials over the special-function rate."""
+    terms = {"bytes": bytes_ / HBM_BYTES_PER_S, "operations": flops / peak,
+             "exponentials": exps / SFU_EXPS}
+    term = max(terms, key=terms.get)
+    return 1e3 * terms[term], term
+
+
+def scan_work(Bz: int, S: int, Di: int, N: int) -> tuple[int, int, int]:
+    """Bytes, float32 operations and exponentials of one scan call on
+    float32 streams: x, dt, y per (b, t, d); B, C per (b, t, n); A per
+    (d, n), D per d; h0, h_last per (b, d, n). Per (b, t, d, n) one
+    exponential and six operations (dt * A, its product with h, dx * B,
+    their sum, h * C and its sum into y); per (b, t, d) three more (dt * x,
+    D * x and its sum into y)."""
+    bytes_ = 4 * (3 * Bz * S * Di + 2 * Bz * S * N + Di * N + Di
+                  + 2 * Bz * Di * N)
+    return bytes_, 6 * Bz * S * Di * N + 3 * Bz * S * Di, Bz * S * Di * N
+
+
 def _model_record(name, kern, plain, library, err, tol, bytes_, flops,
-                  peak, plain_calls) -> dict:
-    """Times of one kernel case beside its bound; prints one line."""
-    b, f = bytes_ / HBM_BYTES_PER_S, flops / peak
-    r = dict(shape=name, max_abs_err=err, tol=tol, ms=device_ms(kern),
+                  peak, plain_calls, exps: float = 0, ms=None) -> dict:
+    """Times of one kernel case beside its bound; prints one line. ``ms``,
+    when given, is the kernel's device time as its path sees it (the
+    scan's cold decode); the time of ``kern`` replayed on the same inputs
+    is then ``warm_ms``."""
+    bound_ms, term = roofline(bytes_, flops, peak, exps)
+    warm = device_ms(kern)
+    r = dict(shape=name, max_abs_err=err, tol=tol,
+             ms=warm if ms is None else ms, warm_ms=warm,
              plain_ms=device_ms(plain, rounds=3, calls=plain_calls),
              wrapper_ms=wrapper_ms(kern),
              plain_wrapper_ms=wrapper_ms(plain, rounds=3, calls=plain_calls,
@@ -809,16 +842,18 @@ def _model_record(name, kern, plain, library, err, tol, bytes_, flops,
              # attention allocates inside the call, which graph capture
              # refuses
              library_ms=None if library is None else wrapper_ms(library),
-             bytes=bytes_, flops=flops, bound_ms=1e3 * max(b, f),
-             bound_by="bytes" if b >= f else "operations")
+             bytes=bytes_, flops=flops, exps=exps, bound_ms=bound_ms,
+             bound_by=term)
     lib = ("none" if library is None
            else f"{1e3 * r['library_ms']!r}us")
+    kernel = (f"kernel={1e3 * warm!r}us" if ms is None else
+              f"kernel cold={1e3 * ms!r}us (warm={1e3 * warm!r}us)")
     print(f"[model-kernels] {name}: max_abs_err={err!r} (tol {tol}) device: "
-          f"kernel={1e3 * r['ms']!r}us plain={1e3 * r['plain_ms']!r}us; "
+          f"{kernel} plain={1e3 * r['plain_ms']!r}us; "
           f"through the wrapper: kernel={1e3 * r['wrapper_ms']!r}us "
           f"plain={1e3 * r['plain_wrapper_ms']!r}us; library={lib}; "
-          f"bytes={bytes_} flops={flops} bound={1e3 * r['bound_ms']!r}us "
-          f"({r['bound_by']})")
+          f"bytes={bytes_} flops={flops} exps={exps} "
+          f"bound={1e3 * bound_ms!r}us ({term})")
     return r
 
 
@@ -846,8 +881,6 @@ def phase_model_kernels(dev) -> dict:
                                                      flash_attention_kernel,
                                                      flash_attention_ref,
                                                      plan_launch)
-    from repro_torch.kernels.selective_scan import (selective_scan_kernel,
-                                                    selective_scan_ref)
 
     out: dict = {}
     rng = np.random.default_rng(13)
@@ -893,31 +926,64 @@ def phase_model_kernels(dev) -> dict:
             lambda: flash_attention_ref(q, k, v, **kw), library, err,
             TOL[dtype], bytes_, flops,
             BF16_FLOPS if dt == torch.bfloat16 else FP32_FLOPS, 10))
+    out.update(phase_scan(dev))
+    return out
+
+
+def _scan_set(rng, Bz: int, S: int, Di: int, N: int, dev) -> tuple:
+    """One layer's scan inputs as the model hands them over: float32
+    streams, a cached state h0."""
+    import numpy as np
+    import torch
+
+    n = lambda *s: rng.standard_normal(s, np.float32)  # noqa: E731
+    t = lambda a: torch.tensor(a, device=dev)  # noqa: E731
+    x, B_, C_ = t(n(Bz, S, Di)), t(n(Bz, S, N)), t(n(Bz, S, N))
+    dts = t((np.log1p(np.exp(n(Bz, S, Di))) * 0.1).astype(np.float32))
+    A, D, h0 = t(-np.exp(n(Di, N) * 0.3)), t(n(Di)), t(n(Bz, Di, N))
+    return x, dts, B_, C_, A, D, h0
+
+
+def phase_scan(dev) -> dict:
+    """Parity and timing of selective_scan at falcon-mamba-7b's prefill
+    and decode shapes (``SCAN_CASES``). Decode is timed cold, as serving
+    meets it: the timed calls cycle over ``MAMBA_LAYERS`` input sets, one
+    per layer, each call keeping its outputs, so a state row is read and
+    written once per ~330 MB; the time of calls replayed on one set stays
+    beside it as ``warm_ms``. Imports ``repro_torch`` from ``sys.path``,
+    so an older checkout's ``src`` placed first is timed by the same
+    code."""
+    import numpy as np
+
+    from repro_torch.kernels.selective_scan import (selective_scan_kernel,
+                                                    selective_scan_ref)
+
+    out = []
+    rng = np.random.default_rng(13)
     Bz, Di, N = MAMBA_BZ, MAMBA_DI, MAMBA_N
     for name, S in SCAN_CASES:
-        n = lambda *s: rng.standard_normal(s, np.float32)  # noqa: E731
-        t = lambda a: torch.tensor(a, device=dev)  # noqa: E731
-        # the model hands the scan float32 streams; h0 is a cached state
-        x, B_, C_ = t(n(Bz, S, Di)), t(n(Bz, S, N)), t(n(Bz, S, N))
-        dts = t((np.log1p(np.exp(n(Bz, S, Di))) * 0.1).astype(np.float32))
-        A, D, h0 = t(-np.exp(n(Di, N) * 0.3)), t(n(Di)), t(n(Bz, Di, N))
-        args = (x, dts, B_, C_, A, D, h0)
+        args = _scan_set(rng, Bz, S, Di, N, dev)
         (ky, kh), (py, ph) = selective_scan_kernel(*args), selective_scan_ref(*args)
         tol = 10 * TOL["float32"]
         err = max(_close_or_raise(f"selective_scan {name} y", ky, py, tol),
                   _close_or_raise(f"selective_scan {name} h", kh, ph, tol))
-        # x, dt, y per (b, t, d); B, C per (b, t, n); A, h0, h_last per
-        # (d, n); an exp, three multiplies and two adds per (b, t, d, n),
-        # three more ops per (b, t, d)
-        bytes_ = 4 * (3 * Bz * S * Di + 2 * Bz * S * N + Di * N + Di
-                      + 2 * Bz * Di * N)
-        flops = 7 * Bz * S * Di * N + 3 * Bz * S * Di
-        out.setdefault("selective_scan", []).append(_model_record(
+        bytes_, flops, exps = scan_work(Bz, S, Di, N)
+        cold = None
+        if S == 1:
+            sets = [args] + [_scan_set(rng, Bz, S, Di, N, dev)
+                             for _ in range(MAMBA_LAYERS - 1)]
+            kept, turn = [], iter(range(MAMBA_LAYERS))
+            # each captured call reads its own layer's set and its outputs
+            # stay allocated, so no two calls of a replay share a row
+            cold = device_ms(lambda: kept.append(selective_scan_kernel(
+                *sets[next(turn)])), calls=MAMBA_LAYERS)
+            del sets, kept
+        out.append(_model_record(
             f"selective_scan {name} Bz={Bz} S={S} Di={Di} N={N}",
             lambda: selective_scan_kernel(*args),
             lambda: selective_scan_ref(*args), None, err, tol, bytes_, flops,
-            FP32_FLOPS, 1))
-    return out
+            FP32_FLOPS, 1, exps=exps, ms=cold))
+    return {"selective_scan": out}
 
 
 def _serve(arch, cfg, params, backend: str, label: str) -> dict:
@@ -1243,14 +1309,18 @@ def main() -> int:
             "replaces": sources[name][1], "launches": launches[name],
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": row["ms"], "plain_ms": row["plain_ms"],
-            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "bound_ms": row["bound_ms"],
+            # the exponentials are operations, on the special-function units
+            "bound_by": "bytes" if row["bound_by"] == "bytes" else
+                        "operations",
+            "bound_term": row["bound_by"],
             "library_ms": row["library_ms"], "wrapper_ms": row["wrapper_ms"],
             "plain_wrapper_ms": row["plain_wrapper_ms"],
             "shape": row["shape"],
             "other_shapes": [{k: r[k] for k in
-                              ("shape", "max_abs_err", "ms", "plain_ms",
-                               "wrapper_ms", "library_ms", "bound_ms",
-                               "bound_by")} for r in rows[1:]],
+                              ("shape", "max_abs_err", "ms", "warm_ms",
+                               "plain_ms", "wrapper_ms", "library_ms",
+                               "bound_ms", "bound_by")} for r in rows[1:]],
             "serving": {a: {k: v for k, v in r.items() if k != "kernel"}
                         for a, r in served.items() if r["kernel"] == name},
             **({"routes": {r["shape"]: r["ms"] for r in rows},

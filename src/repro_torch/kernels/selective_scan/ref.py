@@ -7,8 +7,8 @@ time in float32, the state ``h`` (Bz, Di, N) carried from step to step,
     h = exp(dt * A) * h + (dt * x) * B_t;   y_t = h . C_t + D * x_t
 
 and ``y`` cast back to x's dtype. The CPU tests and the ``backend="plain"``
-route run it; the CUDA kernel walks the same recurrence, one thread per
-(batch, channel).
+route run it; the CUDA kernel walks the same recurrence, four lanes per
+(batch, channel), each holding four of the N states.
 """
 
 from __future__ import annotations

@@ -7,7 +7,9 @@ kernel or raises; nothing falls back). On the card (``-m gpu``) each kernel
 is held against its plain version — the grid of ``tests/test_kernels.py``,
 the serving path's shapes, the model's strided layouts, the edges of each
 ``flash_attention`` route (ragged tiles, empty and ragged decode splits,
-every head dim, a call replayed from a CUDA graph) — at that file's
+every head dim, a call replayed from a CUDA graph), the scan's edges
+(every state width, ragged rounds and channel tiles, rows off a 16-byte
+boundary, a call replayed from a CUDA graph) — at that file's
 tolerances: ``TOL`` for attention, ten times ``TOL`` for the scan (1,024
 steps of a recurrence in another rounding order). The plain versions are
 held against the reference's by ``test_torch_attention.py`` and
@@ -72,7 +74,16 @@ DECODE = [
 SCAN = [(2, 64, 32, 8), (1, 128, 64, 16), (2, 96, 48, 4), (1, 256, 128, 16),
         (4, 1024, 8192, 16),                         # falcon-mamba-7b prefill
         (4, 1, 8192, 16),                            # and decode
-        (3, 70, 200, 8)]                             # ragged channel blocks
+        (3, 70, 200, 8),                             # ragged channel blocks
+        # rounds of 16 steps: S not a multiple of the round; S = 1 from the
+        # nonzero h0 every case has
+        (2, 17, 64, 16), (1, 33, 128, 5), (2, 1, 100, 16), (1, 1, 64, 3),
+        # channel tiles of 64: Di not a multiple of the tile; odd Di and
+        # odd S * N, whose bf16 rows are copied element by element
+        (2, 40, 100, 16), (1, 19, 37, 7), (2, 5, 130, 11),
+        # every N the four lanes of four states a channel can hold, the
+        # surplus masked off (N = 16: the vector path)
+        *[(2, 40, 96, n) for n in range(1, 17)]]
 
 
 def _qkv(seed, B, H, KV, Sq, Skv, hd, dtype="float32", device="cpu"):
@@ -328,12 +339,8 @@ def test_cuda_attention_graph_replay(Sq):
                                    atol=TOL["bfloat16"], rtol=TOL["bfloat16"])
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("Bz,S,Di,N", SCAN)
-def test_cuda_scan_matches_plain(Bz, S, Di, N, dtype):
-    dev = _card()
-    args = _scan_inputs(S + Di, Bz, S, Di, N, dtype, dev)
+def _check_scan(args, dtype):
+    """One kernel launch against the plain version on ``args``."""
     before = _cuda.LAUNCHES["selective_scan"]
     y, h = selective_scan_kernel(*args)
     assert _cuda.LAUNCHES["selective_scan"] == before + 1
@@ -341,6 +348,56 @@ def test_cuda_scan_matches_plain(Bz, S, Di, N, dtype):
     tol = dict(atol=TOL[dtype] * 10, rtol=TOL[dtype] * 10)
     np.testing.assert_allclose(_f32(y), _f32(ry), **tol)
     np.testing.assert_allclose(_f32(h), _f32(rh), **tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("Bz,S,Di,N", SCAN)
+def test_cuda_scan_matches_plain(Bz, S, Di, N, dtype):
+    dev = _card()
+    _check_scan(_scan_inputs(S + Di, Bz, S, Di, N, dtype, dev), dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("N", [16, 6])
+def test_cuda_scan_unaligned_rows(N):
+    """Streams and state rows that start 4 bytes past a 16-byte boundary
+    (views into a larger buffer): 4-byte copy granules, and at N = 16 the
+    scalar state path instead of the vector one."""
+    dev = _card()
+    args = _scan_inputs(N + 1, 2, 21, 72, N, device=dev)
+    shifted = []
+    for t in args:
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        assert view.data_ptr() % 16 == 4
+        shifted.append(view)
+    _check_scan(shifted, "float32")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("Bz,S,Di", [(4, 1, 8192), (2, 100, 256)])
+def test_cuda_scan_graph_replay(Bz, S, Di):
+    """A call captured in a CUDA graph (as the timing and a graph-captured
+    decode step take it) and replayed on new inputs written in place."""
+    dev = _card()
+    args = _scan_inputs(S, Bz, S, Di, 16, device=dev)
+    selective_scan_kernel(*args)                     # build, load
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        y, h = selective_scan_kernel(*args)
+    for seed in (1, 2):
+        for dst, src in zip(args, _scan_inputs(seed, Bz, S, Di, 16,
+                                               device=dev)):
+            dst.copy_(src)
+        graph.replay()
+        torch.cuda.synchronize()
+        ry, rh = selective_scan_ref(*args)
+        tol = dict(atol=TOL["float32"] * 10, rtol=TOL["float32"] * 10)
+        np.testing.assert_allclose(_f32(y), _f32(ry), **tol)
+        np.testing.assert_allclose(_f32(h), _f32(rh), **tol)
 
 
 @pytest.mark.gpu

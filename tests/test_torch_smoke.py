@@ -80,6 +80,30 @@ def test_pinned_paths_cover_the_new_kernels():
                 "value_score"])
 
 
+@pytest.mark.parametrize("S,bound_us,term", [(1024, 128.4, "exponentials"),
+                                              (1, 1.536, "bytes")])
+def test_scan_bound(S, bound_us, term):
+    """Phase 8's bound of the scan at falcon-mamba-7b's shapes (Bz 4,
+    Di 8,192, N 16): prefill is set by its 536,870,912 exponentials at the
+    special-function rate (its bytes take 121.8 us), decode by its bytes."""
+    smoke = _chip_smoke()
+    bytes_, flops, exps = smoke.scan_work(4, S, 8192, 16)
+    ms, by = smoke.roofline(bytes_, flops, smoke.FP32_FLOPS, exps)
+    assert by == term
+    assert round(1e3 * ms, 1 if S > 1 else 3) == bound_us
+    if S > 1:
+        assert round(1e6 * bytes_ / smoke.HBM_BYTES_PER_S, 1) == 121.8
+
+
+def test_cold_decode_cycles_beyond_l2():
+    """The cold decode timing's input and output sets, one per layer, do
+    not fit in the L2 together."""
+    smoke = _chip_smoke()
+    per_layer = smoke.scan_work(smoke.MAMBA_BZ, 1, smoke.MAMBA_DI,
+                                smoke.MAMBA_N)[0]
+    assert smoke.MAMBA_LAYERS * per_layer > 4 * smoke.L2_BYTES
+
+
 def test_chip_smoke_refuses_to_run_without_a_card(tmp_path):
     """Without a card, and alone in a directory, the script exits
     non-zero and prints no result line."""
