@@ -38,7 +38,13 @@ Phases, each raising on failure (the script then exits non-zero):
    at their paths' shapes: a ``grid_500_evict`` burst (500 sites x 1,250
    pairs, zero and nonzero serve), the ``bulk_shortest`` and 500-site
    dispatch bursts, the ``economy_starved`` (52 x 100) and 500 x 1,000
-   value matrices in both modes — each bit-equal to its plain version;
+   value matrices in both modes — each bit-equal to its plain version,
+   timed beside its bound; ``strategy_plan``'s bound counts the bytes its
+   result depends on (``fetch`` at every cell, ``bw`` and ``local`` where
+   ``fetch`` holds), with the bound at every cell beside it
+   (``bound_all_cells_ms``). ``phase_dense_kernels`` imports
+   ``repro_torch`` from ``sys.path``, so an older checkout's ``src``
+   placed first is timed by the same code;
 7. the slice's paths (``PATHS``) on the card and on the CPU:
    ``grid_500_evict`` in ``strategy_mode="batch"`` at full width (500
    sites, 10,000 files, 25-file jobs, ``broker="jax"``) with the job count
@@ -634,7 +640,9 @@ def phase_path_shape(dev, shape: dict) -> dict:
 
 def phase_dense_kernels(dev) -> dict:
     """Parity and timing of strategy_plan, st_cost and value_score at
-    their paths' shapes; returns per-kernel records (one per shape)."""
+    their paths' shapes; returns per-kernel records (one per shape).
+    Imports ``repro_torch`` from ``sys.path``, so an older checkout's
+    ``src`` placed first is timed by the same code."""
     from repro_torch.kernels.st_cost import st_cost_kernel, st_cost_ref
     from repro_torch.kernels.strategy_plan import (strategy_plan_kernel,
                                                    strategy_plan_ref)
@@ -643,7 +651,8 @@ def phase_dense_kernels(dev) -> dict:
 
     out: dict = {}
 
-    def record(name, shape, kern, plain, err, bytes_, flops, plain_calls):
+    def record(name, shape, kern, plain, err, bytes_, flops, plain_calls,
+               **extra):
         bound_ms, bound_by = roofline(bytes_, flops, FP64_FLOPS)
         r = dict(shape=shape, max_abs_err=err, ms=device_ms(kern),
                  plain_ms=device_ms(plain, rounds=5, calls=plain_calls),
@@ -651,13 +660,14 @@ def phase_dense_kernels(dev) -> dict:
                  plain_wrapper_ms=wrapper_ms(plain, rounds=5,
                                              calls=plain_calls, warmup=2),
                  bytes=bytes_, flops=flops, bound_ms=bound_ms,
-                 bound_by=bound_by)
+                 bound_by=bound_by, **extra)
         out.setdefault(name, []).append(r)
         print(f"[kernels] {name} {shape} bit-equal device: "
               f"kernel={1e3 * r['ms']!r}us plain={1e3 * r['plain_ms']!r}us; "
               f"through the wrapper: kernel={1e3 * r['wrapper_ms']!r}us "
               f"plain={1e3 * r['plain_wrapper_ms']!r}us; bytes={bytes_} "
-              f"flops={flops} bound={1e3 * bound_ms!r}us ({bound_by})")
+              f"flops={flops} bound={1e3 * bound_ms!r}us ({bound_by})"
+              + "".join(f" {k}={v!r}" for k, v in extra.items()))
 
     for served in (False, True):
         a = plan_state(3 + served, served, dev)
@@ -666,14 +676,23 @@ def phase_dense_kernels(dev) -> dict:
         err = max(_equal_or_raise("strategy_plan sources", ks, ps),
                   _equal_or_raise("strategy_plan flags", kf, pf))
         n_s, n_p = a[0].shape
-        # bw, fetch, local per cell; serve; free, size, sources, flags per
-        # pair. A divide and two compares per cell.
+        n_fetch = int(a[1].sum())
+        # what the result depends on: fetch at every cell, bw and local
+        # where fetch holds (a masked key is -1 whatever they hold), serve
+        # per site; free, size, sources, flags per pair. A divide, an add
+        # and two compares per fetchable cell, two compares per masked one.
+        per_pair = 16 * n_p + 8 * n_p + 3 * n_p
+        # beside it, the bound counted at bw, fetch and local for every
+        # cell, as the first design read them
+        all_cells_ms, _ = roofline(10 * n_s * n_p + 8 * n_s + per_pair,
+                                   3 * n_s * n_p, FP64_FLOPS)
         record("strategy_plan", f"sites={n_s} pairs={n_p} "
                f"serve={'nonzero' if served else 'zero'}",
                lambda: strategy_plan_kernel(*a),
                lambda: strategy_plan_ref(*a), err,
-               10 * n_s * n_p + 8 * n_s + 16 * n_p + 8 * n_p + 3 * n_p,
-               3 * n_s * n_p, 10)
+               n_s * n_p + 9 * n_fetch + 8 * n_s + per_pair,
+               2 * n_s * n_p + 2 * n_fetch, 10, fetchable=n_fetch,
+               bound_all_cells_ms=all_cells_ms)
     for scenario in ("bulk_shortest", "grid_500"):
         a = st_state(scenario, 7, dev)
         err = _equal_or_raise("st_cost", st_cost_kernel(*a), st_cost_ref(*a))
@@ -1298,6 +1317,8 @@ def main() -> int:
             "other_shapes": [{k: r[k] for k in
                               ("shape", "ms", "plain_ms", "wrapper_ms",
                                "bound_ms", "bound_by")} for r in rows[1:]],
+            **({"bound_all_cells_ms": row["bound_all_cells_ms"]}
+               if name == "strategy_plan" else {}),
         })
     # the first case of each is its path's main shape: the gemma3-1b
     # global-layer prefill in bf16, the falcon-mamba-7b prefill

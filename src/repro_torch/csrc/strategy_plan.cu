@@ -3,32 +3,44 @@
 // Replaces the Pallas TPU kernel _strategy_plan_kernel
 // (src/repro/kernels/strategy_plan/kernel.py:45, pallas_call at :93). That
 // kernel walked the site axis in one fori_loop over VMEM-resident
-// (sites, pairs) blocks, the pair axis on the lanes. Here a block owns 32
-// (job, missing-file) pair columns and splits the site axis over 32 groups
-// of threads: thread (x, y) walks sites y, y + 32, y + 64, ... of pair x in
-// ascending order, carrying two running maxima of the effective bandwidth
-// bw[h, p] / (1.0 + serve[h]): over the fetchable holders (src_g) and over
-// the fetchable holders in the destination's region (src_l). The sentinels
-// are the oracle's (src/repro/kernels/strategy_plan/ref.py:259): masked keys
-// are -1 and a running best starts at -2 and moves on a strict > only, so each
-// group holds the first maximum of its sites. The groups are then combined in
-// shared memory by the larger key, and on equal keys the lower site id, which
-// gives the first maximum over all sites: ties keep the lowest site id and an
-// all-masked column lands on site 0, exactly as np.argmax does. has_l is
-// best_l >= 0 (bandwidth is nonnegative), inter_g is the winner's local flag
-// negated, store_ok is free >= size. The divide is a true float64 divide and
-// nothing is contracted (-fmad=false), so the result is bit-identical to the
-// oracle.
+// (sites, pairs) blocks, the pair axis on the lanes. The function, for every
+// (job, missing-file) pair column p: the first argmax over sites of the
+// effective bandwidth bw[h, p] / (1.0 + serve[h]) among the fetchable holders
+// (src_g) and among the fetchable holders in the destination's region
+// (src_l), with the oracle's sentinels (src/repro/kernels/strategy_plan/
+// ref.py:44): a masked key is -1, so an all-masked column lands on site 0;
+// then has_l = best_l >= 0 (bandwidth is nonnegative), inter_g = !local at
+// the global pick, store_ok = free >= size.
 //
-// What bounds it: at the main-path shape (500 sites x 1,250 pairs of a
-// grid_500_evict burst) it reads 10 bytes per (site, pair) cell, ~6.3 MB, or
-// ~1.9 us of the card's 3.35 TB/s, against ~0.6 M float64 divides; so bytes.
-// A first version gave each pair one thread walking all 500 sites: 10 blocks
-// on 132 SMs and a 500-step dependent chain per thread (121.5 us on the H100,
-// slower than the plain PyTorch version). Splitting the sites over 32 groups
-// cuts the chain to 16 steps and puts 40 blocks of 1,024 threads on the card;
-// a warp's 32 threads still read 32 neighbouring pairs of one site row
-// (coalesced), and its serve value is one broadcast address.
+// What bounds it: bytes, and fewer than the first version read. The result
+// depends on fetch at every cell, on bw and local only where fetch holds
+// (a masked key is -1 whatever they hold), on serve per site and on free,
+// size and the outputs per pair. A grid_500_evict burst (500 sites x 1,250
+// pairs, ~5 fetchable holders a pair) needs ~0.7 MB, ~0.2 us at 3.35 TB/s;
+// counted at 10 bytes a cell, as the first version read, it was ~6.3 MB,
+// ~1.9 us. Its divides are one per fetchable cell, ~6 K.
+//
+// The first version gave a block 32 pairs and 32 site groups: 40 blocks on
+// the 132 SMs, and every thread loaded bw, local and serve and ran an IEEE
+// float64 divide (a ~20-instruction sequence) on each of its 16 cells, 99%
+// of them thrown away under the mask (8.68 us on the H100, PERF.md). Here a
+// block owns kPairs = 8 pair columns and splits the sites over kGroups = 32
+// groups (157 blocks of 256 threads at 1,250 pairs, all in flight at once):
+// thread (x, y) owns sites y, y + 32, ... of pair x. A round of kRound = 16
+// of them (one round at 500 sites) goes in three steps:
+//   1. the 16 fetch flags are loaded together and kept as a bitmask;
+//   2. the masked cells need no load: their key is -1, so of them only the
+//      lowest site, the lowest clear bit, can be the thread's pick;
+//   3. the set bits are popped with __ffs, kPop at a time: bw, serve and
+//      local are loaded for those cells only, all before the divides.
+// Picks are combined by the larger key, and on equal keys the lower site
+// id. That is a total order, so the order of the candidates and the shape of
+// the combine do not change the result: each thread holds the first maximum
+// of its sites, the four groups of a warp are combined by shuffles and the
+// eight warps through shared memory, which gives the first maximum over all
+// sites, as np.argmax gives it. inter_g reads local at the winning row, once
+// per pair, after the combine. Divides are true float64 divides and nothing
+// is contracted (-fmad=false), so the result is bit-identical to the oracle.
 
 #include <cuda_runtime.h>
 
@@ -36,78 +48,142 @@
 
 namespace {
 
-constexpr int kPairs = 32;    // pair columns per block (threadIdx.x)
-constexpr int kGroups = 32;   // site groups per block (threadIdx.y)
+constexpr int kPairs = 8;                  // pair columns a block (x)
+constexpr int kGroups = 32;                // site groups a block (y)
+constexpr int kThreads = kPairs * kGroups;
+constexpr int kWarpGroups = 32 / kPairs;   // site groups in one warp
+constexpr int kWarps = kThreads / 32;
+constexpr int kRound = 16;                 // sites a thread flags at once
+constexpr int kPop = 2;                    // fetchable cells loaded at once
+static_assert(kWarps >= kWarpGroups && kRound <= 32, "combine, bitmask");
 
 struct Pick {
-  double best;
+  double key;
   int32_t site;
 };
 
 // b beats a: a larger key, or an equal key at a lower site id
-__device__ __forceinline__ bool beats(double bk, int32_t bs, double ak,
-                                      int32_t as) {
-  return bk > ak || (bk == ak && bs < as);
+__device__ __forceinline__ bool beats(const Pick& b, const Pick& a) {
+  return b.key > a.key || (b.key == a.key && b.site < a.site);
 }
 
-__global__ void strategy_plan_kernel(
-    const double* __restrict__ bw, const bool* __restrict__ fetch,
-    const bool* __restrict__ local, const double* __restrict__ serve,
-    const double* __restrict__ free_bytes, const double* __restrict__ size,
-    int64_t n_sites, int64_t n_pairs, int32_t* __restrict__ sources,
-    bool* __restrict__ flags) {
-  __shared__ double s_best_g[kGroups][kPairs];
-  __shared__ double s_best_l[kGroups][kPairs];
-  __shared__ int32_t s_src_g[kGroups][kPairs];
-  __shared__ int32_t s_src_l[kGroups][kPairs];
-  __shared__ bool s_loc_g[kGroups][kPairs];
+__device__ __forceinline__ void take(Pick& a, const Pick& b) {
+  if (beats(b, a)) a = b;
+}
+
+// The better of `p` and the pick `lanes` lanes away (same pair column).
+__device__ __forceinline__ Pick shfl_best(Pick p, int lanes) {
+  Pick o;
+  o.key = __shfl_xor_sync(0xffffffffu, p.key, lanes);
+  o.site = __shfl_xor_sync(0xffffffffu, p.site, lanes);
+  return beats(o, p) ? o : p;
+}
+
+__global__ void __launch_bounds__(kThreads)
+strategy_plan_kernel(const double* __restrict__ bw,
+                     const bool* __restrict__ fetch,
+                     const bool* __restrict__ local,
+                     const double* __restrict__ serve,
+                     const double* __restrict__ free_bytes,
+                     const double* __restrict__ size, int64_t n_sites,
+                     int64_t n_pairs, int32_t* __restrict__ sources,
+                     bool* __restrict__ flags) {
+  __shared__ Pick warp_g[kWarps][kPairs];
+  __shared__ Pick warp_l[kWarps][kPairs];
   const int x = threadIdx.x, y = threadIdx.y;
   const int64_t p = (int64_t)blockIdx.x * kPairs + x;
-  double best_g = -2.0, best_l = -2.0;
-  int32_t src_g = INT32_MAX, src_l = INT32_MAX;
-  bool loc_g = false;
-  if (p < n_pairs) {
-    for (int64_t h = y; h < n_sites; h += kGroups) {
-      const int64_t at = h * n_pairs + p;
-      const bool f = fetch[at];
-      const bool l = local[at];
-      const double eff = bw[at] / (1.0 + serve[h]);
-      const double key_g = f ? eff : -1.0;
-      const double key_l = (f && l) ? eff : -1.0;
-      if (key_g > best_g) {
-        best_g = key_g;
-        src_g = (int32_t)h;
-        loc_g = l;
+  const bool owns = p < n_pairs;
+  // the writer's per-pair verdict, loaded now
+  bool store_ok = false;
+  if (owns && y == 0) store_ok = free_bytes[p] >= size[p];
+
+  Pick g{-2.0, INT32_MAX}, l{-2.0, INT32_MAX};
+  if (owns) {
+    for (int64_t h0 = y; h0 < n_sites; h0 += kRound * kGroups) {
+      // bit k: site h0 + k * kGroups
+      bool f[kRound];
+#pragma unroll
+      for (int k = 0; k < kRound; ++k) {
+        const int64_t h = h0 + k * kGroups;
+        f[k] = h < n_sites && fetch[h * n_pairs + p];
       }
-      if (key_l > best_l) {
-        best_l = key_l;
-        src_l = (int32_t)h;
+      uint32_t sites = 0, fetchable = 0;
+#pragma unroll
+      for (int k = 0; k < kRound; ++k) {
+        sites |= (uint32_t)(h0 + k * kGroups < n_sites) << k;
+        fetchable |= (uint32_t)f[k] << k;
       }
+      // the masked cells' key is -1: the lowest one is their best
+      uint32_t masked = sites & ~fetchable;
+      if (masked)
+        take(g, Pick{-1.0, (int32_t)(h0 + (__ffs(masked) - 1) * kGroups)});
+      uint32_t in_region = 0, m = fetchable;
+      while (m) {
+        // a short round repeats the first cell, which the max absorbs
+        int k[kPop];
+        k[0] = __ffs(m) - 1;
+        m &= m - 1;
+#pragma unroll
+        for (int j = 1; j < kPop; ++j) {
+          k[j] = m ? __ffs(m) - 1 : k[0];
+          m &= m - 1;
+        }
+        double b[kPop], sv[kPop];
+        bool lc[kPop];
+#pragma unroll
+        for (int j = 0; j < kPop; ++j) {
+          const int64_t h = h0 + k[j] * kGroups;
+          b[j] = bw[h * n_pairs + p];
+          sv[j] = serve[h];
+          lc[j] = local[h * n_pairs + p];
+        }
+#pragma unroll
+        for (int j = 0; j < kPop; ++j) {
+          const Pick c{b[j] / (1.0 + sv[j]),
+                       (int32_t)(h0 + k[j] * kGroups)};
+          take(g, c);
+          if (lc[j]) {
+            take(l, c);
+            in_region |= 1u << k[j];
+          }
+        }
+      }
+      // key_l is -1 where fetch or local is clear
+      masked = sites & ~in_region;
+      if (masked)
+        take(l, Pick{-1.0, (int32_t)(h0 + (__ffs(masked) - 1) * kGroups)});
     }
   }
-  s_best_g[y][x] = best_g;
-  s_src_g[y][x] = src_g;
-  s_loc_g[y][x] = loc_g;
-  s_best_l[y][x] = best_l;
-  s_src_l[y][x] = src_l;
+  // the kWarpGroups groups of a warp: lanes x, x + 8, x + 16, x + 24
+#pragma unroll
+  for (int lanes = kPairs; lanes < 32; lanes <<= 1) {
+    g = shfl_best(g, lanes);
+    l = shfl_best(l, lanes);
+  }
+  const int warp = y / kWarpGroups;
+  if (y % kWarpGroups == 0) {
+    warp_g[warp][x] = g;
+    warp_l[warp][x] = l;
+  }
   __syncthreads();
-  if (y != 0 || p >= n_pairs) return;
-  for (int k = 1; k < kGroups; ++k) {
-    if (beats(s_best_g[k][x], s_src_g[k][x], best_g, src_g)) {
-      best_g = s_best_g[k][x];
-      src_g = s_src_g[k][x];
-      loc_g = s_loc_g[k][x];
-    }
-    if (beats(s_best_l[k][x], s_src_l[k][x], best_l, src_l)) {
-      best_l = s_best_l[k][x];
-      src_l = s_src_l[k][x];
-    }
+  if (y >= kWarpGroups) return;   // warp 0 combines the warps
+  g = warp_g[y][x];
+  l = warp_l[y][x];
+  for (int w = y + kWarpGroups; w < kWarps; w += kWarpGroups) {
+    take(g, warp_g[w][x]);
+    take(l, warp_l[w][x]);
   }
-  sources[p] = src_g;
-  sources[n_pairs + p] = src_l;
-  flags[p] = best_l >= 0.0;
-  flags[n_pairs + p] = !loc_g;
-  flags[2 * n_pairs + p] = free_bytes[p] >= size[p];
+#pragma unroll
+  for (int lanes = kPairs; lanes < 32; lanes <<= 1) {
+    g = shfl_best(g, lanes);
+    l = shfl_best(l, lanes);
+  }
+  if (y != 0 || !owns) return;
+  sources[p] = g.site;
+  sources[n_pairs + p] = l.site;
+  flags[p] = l.key >= 0.0;
+  flags[n_pairs + p] = !local[(int64_t)g.site * n_pairs + p];
+  flags[2 * n_pairs + p] = store_ok;
 }
 
 }  // namespace

@@ -22,6 +22,7 @@ from repro_torch.core.economy import (ECON_BACKENDS, VALUE_MODELS,
                                       ReplicationOptimizer)
 from repro_torch.kernels import _cuda
 from repro_torch.kernels.value_score import value_score, value_score_kernel
+from test_torch_kernels import vs_inputs
 from test_torch_plan import assert_same_run
 
 
@@ -38,11 +39,29 @@ def _vs_case(seed: int, sites: int, files: int):
     return demand, sizes, presence, bw
 
 
+#: (sites, files, holders) and the test id: ``mixed`` is ``_vs_case``,
+#: the others ``vs_inputs``' edge inputs (dense, empty and single-holder
+#: presence, one site, unaligned rows, more holders than the CUDA kernel's
+#: one pass, no file, zero bw rows)
+VS_PLAIN_CASES = (
+    ((1, 3, "mixed"), "1-3"), ((4, 6, "mixed"), "4-6"),
+    ((13, 40, "mixed"), "13-40"), ((52, 100, "mixed"), "52-100"),
+    ((37, 260, "mixed"), "37-260"),
+    ((52, 100, "dense"), "52-100-dense"), ((52, 100, "empty"), "52-100-empty"),
+    ((52, 100, "single"), "52-100-single"), ((1, 10, "dense"), "1-10-dense"),
+    ((33, 77, "sparse"), "33-77-sparse"), ((33, 77, "dense"), "33-77-dense"),
+    ((1100, 40, "single"), "1100-40-single"), ((52, 0, "sparse"), "52-0"),
+    ((52, 100, "zero_bw"), "52-100-zero_bw"),
+)
+
+
 @pytest.mark.parametrize("mode", ["cost", "plain"])
-@pytest.mark.parametrize("sites,files", [(1, 3), (4, 6), (13, 40), (52, 100),
-                                         (37, 260)])
-def test_value_score_plain_matches_oracle(sites, files, mode):
-    args = _vs_case(sites * 100 + files, sites, files)
+@pytest.mark.parametrize("sites,files,kind", [c for c, _ in VS_PLAIN_CASES],
+                         ids=[i for _, i in VS_PLAIN_CASES])
+def test_value_score_plain_matches_oracle(sites, files, kind, mode):
+    seed = sites * 100 + files
+    args = (_vs_case(seed, sites, files) if kind == "mixed"
+            else vs_inputs(seed, sites, files, kind))
     got = value_score(*(torch.tensor(a) for a in args), mode=mode).numpy()
     assert got.dtype == np.float64
     assert np.array_equal(got, oracle_value(*args, mode=mode))

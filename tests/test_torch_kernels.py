@@ -441,9 +441,15 @@ def test_cuda_engine_matches_cpu_engine_across_growth(backend):
     assert engines[0].cap == engines[1].cap >= 256
 
 
-def _plan_inputs(seed: int, sites: int, pairs: int, served: bool):
-    """A burst's planner inputs: quantized bandwidths (ties), sparse
-    holders, all-masked columns, and zero or nonzero serve."""
+def plan_inputs(seed: int, sites: int, pairs: int, served: bool,
+                kind: str = "sparse"):
+    """A burst's planner inputs. ``sparse``: quantized bandwidths (ties),
+    sparse holders, every seventh column all-masked, zero or nonzero serve.
+    ``ties``: one bandwidth everywhere and dense holders, so at zero serve
+    every fetchable holder ties and the lowest site id must win across the
+    kernel's site groups and blocks. ``masked``: every column all-masked,
+    ``local[0, p]`` true on even and false on odd columns (the pick is site
+    0 and ``inter_g`` reads that flag)."""
     rng = np.random.default_rng(seed)
     bw = rng.choice([0.0, 6.25e5, 1.25e6, 2.5e6, 1.25e8], (sites, pairs))
     fetch = rng.random((sites, pairs)) < 0.05
@@ -453,19 +459,46 @@ def _plan_inputs(seed: int, sites: int, pairs: int, served: bool):
              else np.zeros(sites))
     free = rng.choice([0.0, 2.5e7, 1e9], pairs)
     size = np.full(pairs, 5e7)
+    if kind == "ties":
+        bw = np.full((sites, pairs), 1.25e6)
+        fetch = rng.random((sites, pairs)) < 0.3
+        local = rng.random((sites, pairs)) < 0.5
+    elif kind == "masked":
+        fetch = np.zeros((sites, pairs), bool)
+        if sites:
+            local[0] = np.arange(pairs) % 2 == 0
     return bw, fetch, local, serve, free, size
+
+
+#: strategy_plan cases on the card: (sites, pairs, kind) and the test id
+PLAN_CASES = (
+    ((500, 1250, "sparse"), "500-1250"),     # a grid_500_evict burst
+    ((1100, 300, "sparse"), "1100-300"),     # more sites than one round
+    ((20, 77, "sparse"), "20-77"),           # fewer sites than groups
+    ((3, 0, "sparse"), "3-0"),               # no pair
+    ((500, 1250, "ties"), "500-1250-ties"),
+    ((1100, 300, "ties"), "1100-300-ties"),
+    ((500, 1250, "masked"), "500-1250-masked"),
+    ((20, 77, "masked"), "20-77-masked"),
+    ((500, 1251, "sparse"), "500-1251"),     # pairs not a multiple of 8
+    ((64, 13, "sparse"), "64-13"),
+    ((1, 100, "sparse"), "1-100"),           # one site
+    ((1, 9, "ties"), "1-9-ties"),
+)
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("served", [False, True])
-@pytest.mark.parametrize("sites,pairs", [(500, 1250), (1100, 300), (20, 77),
-                                         (3, 0)])
-def test_cuda_strategy_plan_matches_plain_and_oracle(sites, pairs, served):
-    """strategy_plan on the card (grid_500_evict burst shape; many sites;
-    fewer sites than the kernel's site groups; no pair): bit-equal to its
-    plain version and to the float64 oracle."""
+@pytest.mark.parametrize("sites,pairs,kind", [c for c, _ in PLAN_CASES],
+                         ids=[i for _, i in PLAN_CASES])
+def test_cuda_strategy_plan_matches_plain_and_oracle(sites, pairs, kind,
+                                                     served):
+    """strategy_plan on the card (``PLAN_CASES``: the grid_500_evict burst
+    shape; many sites; fewer sites than the kernel's site groups; no pair;
+    ties everywhere; all-masked columns; ragged pair tiles; one site):
+    bit-equal to its plain version and to the float64 oracle."""
     dev = _card()
-    args = _plan_inputs(sites + pairs, sites, pairs, served)
+    args = plan_inputs(sites + pairs, sites, pairs, served, kind)
     t = [torch.tensor(a, device=dev) for a in args]
     ks, kf = strategy_plan_kernel(*t)
     ps, pf = strategy_plan_ref(*t)
@@ -475,6 +508,27 @@ def test_cuda_strategy_plan_matches_plain_and_oracle(sites, pairs, served):
         got = [ks[0], ks[1], kf[0], kf[1], kf[2]]
         for w, g in zip(want, got):
             assert np.array_equal(w, g.cpu().numpy().astype(np.float64))
+
+
+@pytest.mark.gpu
+def test_cuda_strategy_plan_graph_replay():
+    """A call captured in a CUDA graph (as the timing takes it) and
+    replayed on new inputs written in place."""
+    dev = _card()
+    t = [torch.tensor(a, device=dev)
+         for a in plan_inputs(0, 500, 1250, True)]
+    strategy_plan_kernel(*t)                         # build, load
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        ks, kf = strategy_plan_kernel(*t)
+    for seed, kind in ((1, "sparse"), (2, "ties"), (3, "masked")):
+        for dst, src in zip(t, plan_inputs(seed, 500, 1250, True, kind)):
+            dst.copy_(torch.tensor(src))
+        graph.replay()
+        torch.cuda.synchronize()
+        ps, pf = strategy_plan_ref(*t)
+        assert torch.equal(ks, ps) and torch.equal(kf, pf), kind
 
 
 def _st_inputs(seed: int, sites: int, files: int, jobs: int):
@@ -504,21 +558,84 @@ def test_cuda_st_cost_matches_plain_and_oracle(sites, files, jobs):
     assert np.array_equal(got.cpu().numpy(), oracle_st_cost(*args))
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("mode", ["cost", "plain"])
-@pytest.mark.parametrize("sites,files", [(52, 100), (500, 1000)])
-def test_cuda_value_score_matches_plain_and_oracle(sites, files, mode):
-    """value_score on the card (economy_starved and the 500-site shape):
-    bit-equal to its plain version and the oracle."""
-    dev = _card()
-    rng = np.random.default_rng(sites + files)
+def vs_inputs(seed: int, sites: int, files: int, kind: str = "sparse"):
+    """The economy's value-matrix inputs. Holders: ``sparse`` (3% of the
+    cells), ``dense`` (every site holds every file), ``empty`` (no holder),
+    ``single`` (one holder a file, so only the self-exclusion is left at
+    that site), ``zero_bw`` (sparse, with ~30% of the bw rows zero)."""
+    rng = np.random.default_rng(seed)
     demand = rng.random((sites, files)) * rng.choice([0.0, 1.0, 9.0],
                                                      (sites, files))
     sizes = rng.choice([1e9, 2e9], files)
     presence = rng.random((sites, files)) < 0.03
     bw = rng.choice([0.0, 1.25e6, 1.25e8], (sites, sites))
+    if kind == "dense":
+        presence[:] = True
+    elif kind == "empty":
+        presence[:] = False
+    elif kind == "single":
+        presence[:] = False
+        presence[rng.integers(0, sites, files), np.arange(files)] = True
+    elif kind == "zero_bw":
+        bw[rng.random(sites) < 0.3] = 0.0
+    return demand, sizes, presence, bw
+
+
+#: value_score cases on the card: (sites, files, kind) and the test id
+VS_CASES = (
+    ((52, 100, "sparse"), "52-100"),         # economy_starved
+    ((500, 1000, "sparse"), "500-1000"),     # the 500-site catalog
+    ((52, 100, "dense"), "52-100-dense"),
+    ((52, 100, "empty"), "52-100-empty"),
+    ((52, 100, "single"), "52-100-single"),
+    ((500, 1000, "single"), "500-1000-single"),
+    ((1, 10, "dense"), "1-10-dense"),        # one site: no other holder
+    ((33, 77, "sparse"), "33-77"),           # unaligned presence rows
+    ((33, 77, "dense"), "33-77-dense"),
+    ((129, 50, "sparse"), "129-50"),         # a 128-site span and one site
+    ((1100, 300, "sparse"), "1100-300"),     # beyond one holder pass
+    ((1100, 300, "single"), "1100-300-single"),
+    ((1100, 64, "dense"), "1100-64-dense"),
+    ((52, 0, "sparse"), "52-0"),             # no file
+    ((52, 100, "zero_bw"), "52-100-zero_bw"),
+    ((500, 1000, "zero_bw"), "500-1000-zero_bw"),
+)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["cost", "plain"])
+@pytest.mark.parametrize("sites,files,kind", [c for c, _ in VS_CASES],
+                         ids=[i for _, i in VS_CASES])
+def test_cuda_value_score_matches_plain_and_oracle(sites, files, kind, mode):
+    """value_score on the card (``VS_CASES``: economy_starved and the
+    500-site shape; dense, empty and single-holder presence; one site,
+    unaligned rows, a ragged 128-site span, more holders than one pass,
+    no file; zero bw rows):
+    bit-equal to its plain version and the oracle."""
+    dev = _card()
+    demand, sizes, presence, bw = vs_inputs(sites + files, sites, files, kind)
     t = [torch.tensor(a, device=dev) for a in (demand, sizes, presence, bw)]
     got = value_score_kernel(*t, mode=mode)
     assert torch.equal(got, value_score_ref(*t, mode=mode))
     want = oracle_value(demand, sizes, presence, bw, mode=mode)
     assert np.array_equal(got.cpu().numpy(), want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["cost", "plain"])
+def test_cuda_value_score_graph_replay(mode):
+    """A call captured in a CUDA graph (as the timing takes it) and
+    replayed on new inputs written in place."""
+    dev = _card()
+    t = [torch.tensor(a, device=dev) for a in vs_inputs(0, 52, 100)]
+    value_score_kernel(*t, mode=mode)                # build, load
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = value_score_kernel(*t, mode=mode)
+    for seed, kind in ((1, "sparse"), (2, "dense"), (3, "single")):
+        for dst, src in zip(t, vs_inputs(seed, 52, 100, kind)):
+            dst.copy_(torch.tensor(src))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(got, value_score_ref(*t, mode=mode)), kind

@@ -29,6 +29,7 @@ from repro_torch.kernels import _cuda
 from repro_torch.kernels.strategy_plan import (strategy_plan,
                                                strategy_plan_kernel)
 from repro_torch.launch.experiments import run_spec
+from test_torch_kernels import plan_inputs
 
 GB = 1e9
 STRATEGIES = sorted(BATCH_STRATEGIES)
@@ -106,11 +107,28 @@ def _plan_case(seed: int, sites: int, pairs: int, served: bool):
     return bw, fetch, local, serve, free, size
 
 
+#: (sites, pairs, inputs) and the test id: ``mixed`` is ``_plan_case``,
+#: the others ``plan_inputs``' edge inputs (ties everywhere, all-masked
+#: columns with ``local[0, p]`` true and false, one site, more sites than
+#: the CUDA kernel's one round)
+PLAN_PLAIN_CASES = (
+    ((1, 1, "mixed"), "1-1"), ((4, 3, "mixed"), "4-3"),
+    ((13, 17, "mixed"), "13-17"), ((52, 50, "mixed"), "52-50"),
+    ((129, 50, "mixed"), "129-50"), ((37, 260, "mixed"), "37-260"),
+    ((8, 0, "mixed"), "8-0"),
+    ((52, 50, "ties"), "52-50-ties"), ((600, 21, "ties"), "600-21-ties"),
+    ((13, 17, "masked"), "13-17-masked"), ((1, 6, "masked"), "1-6-masked"),
+    ((1, 37, "sparse"), "1-37-sparse"), ((37, 13, "sparse"), "37-13-sparse"),
+)
+
+
 @pytest.mark.parametrize("served", [False, True])
-@pytest.mark.parametrize("sites,pairs", [(1, 1), (4, 3), (13, 17), (52, 50),
-                                         (129, 50), (37, 260), (8, 0)])
-def test_strategy_plan_plain_matches_oracle(sites, pairs, served):
-    args = _plan_case(sites * 1000 + pairs, sites, pairs, served)
+@pytest.mark.parametrize("sites,pairs,kind", [c for c, _ in PLAN_PLAIN_CASES],
+                         ids=[i for _, i in PLAN_PLAIN_CASES])
+def test_strategy_plan_plain_matches_oracle(sites, pairs, kind, served):
+    seed = sites * 1000 + pairs
+    args = (_plan_case(seed, sites, pairs, served) if kind == "mixed"
+            else plan_inputs(seed, sites, pairs, served, kind))
     sources, flags = strategy_plan(*(torch.tensor(a) for a in args))
     assert sources.dtype == torch.int32 and flags.dtype == torch.bool
     assert sources.shape == (2, pairs) and flags.shape == (3, pairs)
