@@ -168,6 +168,14 @@ FP32_FLOPS = 67e12            # H100 SXM float32, outside the tensor cores
 #: 132 SMs, at the clock the float32 figure assumes (67e12 / (132 x 256))
 SFU_EXPS = 4.18e12
 ROUNDS, CALLS = 20, 50        # timing: rounds of back-to-back calls
+#: st_cost's design, named in its kernel summary entry
+ST_COST_DESIGN = (
+    "two launches: missing_time_kernel finds each file's fetchable holders "
+    "once per block (shared-memory bits, __ffs pops, coalesced bw row "
+    "gathers) and packs presence by ballots; job_cost_kernel ranks each "
+    "job's required files into a list once per block and adds their "
+    "t_miss in ascending file order; launched as a programmatic dependent "
+    "of the first")
 
 
 def nvidia_smi() -> str:
@@ -1319,6 +1327,7 @@ def main() -> int:
                                "bound_ms", "bound_by")} for r in rows[1:]],
             **({"bound_all_cells_ms": row["bound_all_cells_ms"]}
                if name == "strategy_plan" else {}),
+            **({"design": ST_COST_DESIGN} if name == "st_cost" else {}),
         })
     # the first case of each is its path's main shape: the gemma3-1b
     # global-layer prefill in bf16, the falcon-mamba-7b prefill

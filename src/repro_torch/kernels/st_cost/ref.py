@@ -2,7 +2,7 @@
 (``csrc/st_cost.cu``).
 
 Mirrors the float64 oracle ``st_cost_ref``
-(``src/repro/kernels/st_cost/ref.py:565``), costing every (job, site) pair
+(``src/repro/kernels/st_cost/ref.py:42``), costing every (job, site) pair
 of one dispatch batch:
 
 1. ``best[f, s]`` — max of ``bw[h, s]`` over the fetchable holders ``h``

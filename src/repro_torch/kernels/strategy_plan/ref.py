@@ -2,7 +2,7 @@
 (``csrc/strategy_plan.cu``).
 
 Mirrors the float64 oracle ``strategy_plan_ref``
-(``src/repro/kernels/strategy_plan/ref.py:259``): for every (job,
+(``src/repro/kernels/strategy_plan/ref.py:44``): for every (job,
 missing-file) pair column ``p`` of one arrival burst,
 
 * ``src_g[p]`` — argmax over sites of ``bw[s, p] / (1.0 + serve[s])``

@@ -2,7 +2,7 @@
 (``csrc/value_score.cu``).
 
 Mirrors the float64 oracle ``value_score_ref``
-(``src/repro/kernels/value_score/ref.py:842``):
+(``src/repro/kernels/value_score/ref.py:33``):
 
 1. ``best[s, f]`` — max of ``bw[h, s]`` over the holders ``h != s`` of
    file ``f`` (self-supply excluded; 0 when no other holder exists);

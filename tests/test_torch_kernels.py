@@ -531,31 +531,109 @@ def test_cuda_strategy_plan_graph_replay():
         assert torch.equal(ks, ps) and torch.equal(kf, pf), kind
 
 
-def _st_inputs(seed: int, sites: int, files: int, jobs: int):
+def st_inputs(seed: int, sites: int, files: int, jobs: int,
+              kind: str = "sparse"):
+    """A dispatch burst's cost inputs. ``sparse``: ~4 holders a file (one
+    forced), 10% of the sites offline, every fifth file fetchable from its
+    offline holders too, ~12 required files a job, a few zero bandwidths.
+    ``all_held``: every site holds and may send every file (every term 0).
+    ``no_holder``: nothing fetchable (inf wherever a required file is
+    missing). ``zero_bw``: 30% of the bw rows zero, every tenth file
+    fetchable only from those. ``not_subset``: fetch drawn apart from
+    presence. ``job_edges``: job 0 requires no file, job 1 every file.
+    ``offline``: every site offline."""
     rng = np.random.default_rng(seed)
-    bw = rng.choice([0.0, 6.25e5, 1.25e6, 1.25e8], (sites, sites))
-    presence = rng.random((sites, files)) < 0.05
+    bw = rng.choice([0.0, 6.25e5, 1.25e6, 2.5e6, 1.25e8], (sites, sites),
+                    p=[0.02, 0.3, 0.3, 0.28, 0.1])
+    presence = rng.random((sites, files)) < min(0.5, 3.0 / max(sites, 1))
+    if sites:
+        presence[rng.integers(0, sites, files), np.arange(files)] = True
     online = rng.random(sites) < 0.9
     fetch = presence & online[:, None]
+    fetch[:, ::5] = presence[:, ::5]
     sizes = rng.choice([5e8, 1e9, 1.7e9], files)
-    required = rng.random((jobs, files)) < 0.02
+    required = rng.random((jobs, files)) < min(1.0, 12.0 / max(files, 1))
     rel = rng.integers(0, 40, sites) * 37.5
+    if kind == "all_held":
+        presence[:] = True
+        fetch[:] = True
+    elif kind == "no_holder":
+        fetch[:] = False
+    elif kind == "zero_bw":
+        dark = rng.random(sites) < 0.3
+        bw[dark] = 0.0
+        cols = np.arange(files) % 10 == 0
+        fetch[:, cols] = dark[:, None] & (rng.random((sites, cols.sum()))
+                                          < 0.2)
+    elif kind == "not_subset":
+        fetch = rng.random((sites, files)) < min(0.5, 4.0 / max(sites, 1))
+    elif kind == "job_edges" and jobs >= 2:
+        required[0] = False
+        required[1] = True
+    elif kind == "offline":
+        online[:] = False
     return bw, fetch, presence, sizes, required, rel, online
 
 
+#: st_cost cases: (sites, files, jobs, kind) and the test id
+ST_CASES = (
+    ((52, 100, 50, "sparse"), "52-100-50-sparse"),       # bulk_shortest
+    ((500, 401, 50, "sparse"), "500-401-50-sparse"),     # a 500-site burst
+    ((33, 77, 7, "sparse"), "33-77-7-sparse"),           # unaligned rows
+    ((1100, 60, 20, "sparse"), "1100-60-20-sparse"),     # beyond one pass
+    ((129, 50, 9, "sparse"), "129-50-9-sparse"),         # a ragged span
+    ((1, 10, 3, "sparse"), "1-10-3-sparse"),             # one site
+    ((52, 100, 50, "all_held"), "52-100-50-all_held"),
+    ((52, 100, 50, "no_holder"), "52-100-50-no_holder"),
+    ((52, 100, 50, "zero_bw"), "52-100-50-zero_bw"),
+    ((500, 401, 50, "zero_bw"), "500-401-50-zero_bw"),
+    ((52, 100, 50, "not_subset"), "52-100-50-not_subset"),
+    ((500, 401, 50, "not_subset"), "500-401-50-not_subset"),
+    ((52, 100, 50, "job_edges"), "52-100-50-job_edges"),
+    ((65, 33, 3, "job_edges"), "65-33-3-job_edges"),
+    ((52, 100, 50, "offline"), "52-100-50-offline"),
+    ((52, 100, 300, "sparse"), "52-100-300-sparse"),     # many job groups
+    ((52, 0, 5, "sparse"), "52-0-5-sparse"),             # no file
+    ((5, 7, 0, "sparse"), "5-7-0-sparse"),               # no job
+)
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("sites,files,jobs", [(52, 100, 50), (500, 600, 50),
-                                              (52, 0, 5)])
-def test_cuda_st_cost_matches_plain_and_oracle(sites, files, jobs):
-    """st_cost on the card (bulk_shortest and the 500-site union shape;
-    an empty file axis): bit-equal to its plain version and the oracle,
-    infs in the same places."""
+@pytest.mark.parametrize("sites,files,jobs,kind", [c for c, _ in ST_CASES],
+                         ids=[i for _, i in ST_CASES])
+def test_cuda_st_cost_matches_plain_and_oracle(sites, files, jobs, kind):
+    """st_cost on the card (``ST_CASES``: bulk_shortest and the 500-site
+    burst shape; unaligned rows, more sites than one holder pass, a ragged
+    128-site span, one site; every file held, nothing fetchable, zero bw
+    rows, fetch apart from presence, jobs requiring no file and every
+    file, every site offline, many job groups, no file, no job):
+    bit-equal to its plain version and the oracle, infs in the same
+    places."""
     dev = _card()
-    args = _st_inputs(sites * files + jobs, sites, files, jobs)
+    args = st_inputs(sites * 7 + files + jobs, sites, files, jobs, kind)
     t = [torch.tensor(a, device=dev) for a in args]
     got = st_cost_kernel(*t)
     assert torch.equal(got, st_cost_ref(*t))
     assert np.array_equal(got.cpu().numpy(), oracle_st_cost(*args))
+
+
+@pytest.mark.gpu
+def test_cuda_st_cost_graph_replay():
+    """A call captured in a CUDA graph (as the timing takes it) and
+    replayed on new inputs written in place."""
+    dev = _card()
+    t = [torch.tensor(a, device=dev) for a in st_inputs(0, 52, 100, 50)]
+    st_cost_kernel(*t)                               # build, load
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = st_cost_kernel(*t)
+    for seed, kind in ((1, "sparse"), (2, "not_subset"), (3, "zero_bw")):
+        for dst, src in zip(t, st_inputs(seed, 52, 100, 50, kind)):
+            dst.copy_(torch.tensor(src))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(got, st_cost_ref(*t)), kind
 
 
 def vs_inputs(seed: int, sites: int, files: int, kind: str = "sparse"):

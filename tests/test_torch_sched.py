@@ -25,6 +25,7 @@ from repro_torch.core.torchsched import (TorchLeastLoadedBroker,
                                          leastloaded_select)
 from repro_torch.kernels import _cuda
 from repro_torch.kernels.st_cost import st_cost, st_cost_kernel
+from test_torch_kernels import ST_CASES, st_inputs
 from test_torch_plan import assert_same_run
 
 
@@ -44,12 +45,21 @@ def _st(args):
     return st_cost(*(torch.tensor(a) for a in args)).numpy()
 
 
-@pytest.mark.parametrize("sites,files,jobs", [(1, 1, 1), (4, 8, 3),
-                                              (13, 100, 17), (52, 100, 50),
-                                              (37, 260, 9), (6, 0, 4),
-                                              (5, 7, 0)])
-def test_st_cost_plain_matches_oracle(sites, files, jobs):
-    args = _st_case(sites * 7 + files + jobs, sites, files, jobs)
+#: the plain version's cases: ``mixed`` is ``_st_case``, the others the
+#: card's ``ST_CASES`` (``st_inputs``' edge inputs)
+ST_PLAIN_CASES = tuple(
+    ((s, f, j, "mixed"), f"{s}-{f}-{j}")
+    for s, f, j in ((1, 1, 1), (4, 8, 3), (13, 100, 17), (52, 100, 50),
+                    (37, 260, 9), (6, 0, 4), (5, 7, 0))) + ST_CASES
+
+
+@pytest.mark.parametrize("sites,files,jobs,kind",
+                         [c for c, _ in ST_PLAIN_CASES],
+                         ids=[i for _, i in ST_PLAIN_CASES])
+def test_st_cost_plain_matches_oracle(sites, files, jobs, kind):
+    seed = sites * 7 + files + jobs
+    args = (_st_case(seed, sites, files, jobs) if kind == "mixed"
+            else st_inputs(seed, sites, files, jobs, kind))
     got = _st(args)
     assert got.shape == (jobs, sites) and got.dtype == np.float64
     assert np.array_equal(got, oracle_st_cost(*args))
