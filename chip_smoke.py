@@ -49,8 +49,9 @@ Phases, each raising on failure (the script then exits non-zero):
    ``grid_500_evict`` in ``strategy_mode="batch"`` at full width (500
    sites, 10,000 files, 25-file jobs, ``broker="jax"``) with the job count
    cut from 20,000 to 2,000, ``bulk_shortest`` as registered,
-   ``economy_starved`` at seed 0 and ``hotset_drift`` under the
-   ``predictive`` strategy. All four metrics must equal between the card
+   ``economy_starved`` at seed 0, ``hotset_drift`` under the
+   ``predictive`` strategy and ``site_churn`` (500 jobs, six site outages
+   from ``churn_schedule``). All four metrics must equal between the card
    and the CPU and equal the reference's (``REFERENCE``), and each path
    must launch its kernels (``PATH_KERNELS``); the card runs record their
    network-call shapes (``watch_engines``);
@@ -77,7 +78,23 @@ Phases, each raising on failure (the script then exits non-zero):
    kernel run, the plain route never. The float32 prefill logits must agree
    within ``SERVE_TOL_F32``; the bf16 ones within twice the bf16 noise (how
    far the plain route's bf16 logits lie from its float32 ones); the greedy
-   tokens by ``greedy_agreement``'s margin rule at each tolerance.
+   tokens by ``greedy_agreement``'s margin rule at each tolerance;
+10. telemetry, audit and sanitizer on the card (``phase_telemetry``):
+   ``grid_500_saturated`` (2,000 jobs) under ``obs="trace"`` on the card
+   and the CPU — its metrics equal to phase 5's card run, the four phase
+   buckets partitioning the probe's ``wall_s``, the counters equal between
+   card and CPU, and one ``net.flush`` span per ``event_engine`` launch
+   (plus the flushes that found no active transfer, which launch
+   nothing); phase 7's paths under ``obs="report"`` on the card, each
+   with the reference's metrics and its kernels launched; the
+   ``torch.profiler`` busy share of ``grid_500_saturated`` and
+   ``grid_500_evict`` (batch) at ``TRACE_JOBS`` jobs; the conservation
+   audit (``run_conservation_smoke`` and ``grid_500_saturated`` at 2,000
+   jobs, ``net="device"``), every check ``ok`` and each report equal to
+   the CPU's; ``sanitize_smoke`` on the card equal to the CPU's and to
+   ``SANITIZE_REFERENCE``; a deep-copied simulator whose network engine
+   caches none of the original's addresses and whose run leaves the
+   original untouched; and the cost of one empty span (``probe_cost``).
 
 The launch counts of each path are reset just before it runs and read just
 after. The second-to-last line is the kernel summary as JSON; the last line
@@ -107,6 +124,7 @@ PATHS = {
     "bulk_shortest": ("bulk_shortest", {}, 500),
     "economy_starved": ("economy_starved", {}, 500),
     "hotset_drift": ("hotset_drift", {"strategy": "predictive"}, 500),
+    "site_churn": ("site_churn", {}, 500),
 }
 #: The kernels each path must launch on the card.
 PATH_KERNELS = {
@@ -114,6 +132,7 @@ PATH_KERNELS = {
     "bulk_shortest": ("st_cost",),
     "economy_starved": ("value_score",),
     "hotset_drift": ("value_score",),
+    "site_churn": ("net_rerate",),
 }
 #: The reference's metrics of each path (``repro`` on the CPU, seed 0;
 #: ``avg_job_time`` is the left-to-right mean of its job records), printed
@@ -132,7 +151,27 @@ REFERENCE = {
     "hotset_drift": {
         "avg_job_time": 123720.46816159964, "makespan": 165600.0,
         "avg_inter_comms": 3.112, "completed_jobs": 500},
+    "site_churn": {
+        "avg_job_time": 137426.83633935088, "makespan": 189057.12660265114,
+        "avg_inter_comms": 3.74, "completed_jobs": 500},
 }
+#: The reference's ``sanitize_smoke()`` at its defaults (40 jobs in bursts
+#: of 8 on the paper grid, seed 0): ``repro.analysis.tierace`` on the CPU;
+#: ``tests/test_torch_tierace.py`` holds it to the reference.
+SANITIZE_REFERENCE = {"ties_seen": 366, "tie_races": [
+    {"time": 0.0, "kinds": ["SUBMIT"] * 8,
+     "detail": "state.sites[5][2]: 1500000000.0 != 1000000000.0"},
+    {"time": 480.0, "kinds": ["SUBMIT"] * 8,
+     "detail": "state.sites[11][2]: 1500000000.0 != 2000000000.0"},
+    {"time": 960.0, "kinds": ["SUBMIT"] * 8,
+     "detail": "state.queue[2][0]: 1128.0 != 968.0"},
+    {"time": 1440.0, "kinds": ["SUBMIT"] * 8,
+     "detail": "state.queue[2][0]: 1556.6666666666667 != 1444.0"},
+    {"time": 1920.0, "kinds": ["SUBMIT"] * 8,
+     "detail": "state.sites[1][2]: 3000000000.0 != 3500000000.0"},
+]}
+#: Phase 10's busy-share pass (``torch.profiler``): jobs per cell.
+TRACE_JOBS = 500
 #: The serving path's kernel shapes (phase 8): gemma3-1b's attention layers
 #: (B, H, KV, hd, S) in prefill and decode, falcon-mamba-7b's scan.
 ATTN_CASES = (
@@ -489,7 +528,7 @@ def phase_golden(dev) -> dict:
 
 def phase_scale(dev) -> dict:
     """The main path at full width on the card and on the CPU; returns
-    the launch counts of the card run."""
+    the launch counts and the result of the card run."""
     import torch
 
     from repro_torch.core import SCENARIOS
@@ -526,7 +565,7 @@ def phase_scale(dev) -> dict:
         raise AssertionError("the main path never launched event_engine")
     if any(host_launches.values()):
         raise AssertionError("the CPU run launched a CUDA kernel")
-    return launches
+    return launches, rc
 
 
 def _equal_or_raise(name: str, got, want) -> float:
@@ -736,17 +775,19 @@ def phase_dense_kernels(dev) -> dict:
 
 
 class watch_engines:
-    """Within the block, collect every ``NetworkEngine`` made and count the
-    kernel calls' packed staged rows (``NetInputs.pack``); yields
-    ``(engines, {"calls": n, "staged": rows})``. Wraps methods of this
-    process only, as ``launch/profile_scale.py`` does."""
+    """Within the block, collect every ``NetworkEngine`` made, count the
+    kernel calls' packed staged rows (``NetInputs.pack``) and the flushes
+    that found no active transfer (they launch nothing); yields
+    ``(engines, {"calls": n, "staged": rows, "empty_flushes": m})``.
+    Wraps methods of this process only; the package is unchanged."""
 
     def __enter__(self):
         from repro_torch.core import NetworkEngine
         from repro_torch.kernels.net_call import NetInputs
 
-        engines, packs = [], {"calls": 0, "staged": 0}
+        engines, packs = [], {"calls": 0, "staged": 0, "empty_flushes": 0}
         init, pack = NetworkEngine.__init__, NetInputs.pack
+        flush = NetworkEngine.flush
 
         def watched_init(eng, *a, **kw):
             init(eng, *a, **kw)
@@ -757,13 +798,18 @@ class watch_engines:
             packs["staged"] += len(st_slot)
             return pack(inputs, links, st_slot, *a, **kw)
 
-        self._saved = (NetworkEngine, init, NetInputs, pack)
+        def counted_flush(eng, now):
+            packs["empty_flushes"] += eng.n_active == 0
+            return flush(eng, now)
+
+        self._saved = (NetworkEngine, init, flush, NetInputs, pack)
         NetworkEngine.__init__, NetInputs.pack = watched_init, counted_pack
+        NetworkEngine.flush = counted_flush
         return engines, packs
 
     def __exit__(self, *exc):
-        cls_e, init, cls_i, pack = self._saved
-        cls_e.__init__, cls_i.pack = init, pack
+        cls_e, init, flush, cls_i, pack = self._saved
+        cls_e.__init__, cls_e.flush, cls_i.pack = init, flush, pack
         return False
 
 
@@ -826,6 +872,278 @@ def phase_paths(dev, shapes: dict) -> dict:
             raise AssertionError(f"{name}: the CPU run launched a kernel")
         launches[name] = card
     return launches
+
+
+def device_trace(spec, n_jobs: int, dev) -> dict:
+    """One run of ``spec`` under ``torch.profiler``: the device's busy
+    time (the sum of the CUDA kernels' and copies' durations: one stream,
+    so they do not overlap) against the run's wall time, the network
+    kernels' launches beside the network calls, and the top device
+    kernels."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch.experiments import run_spec
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        r = run_spec(spec, n_jobs=n_jobs, device=dev)
+        torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+    rows = prof.key_averages()
+    # device-side rows only (kernels, copies): a host operator's row
+    # repeats the device time of the kernels it launched
+    dev_rows = [(e.self_device_time_total, e.key, e.count) for e in rows
+                if e.device_type == DeviceType.CUDA]
+    busy_s = sum(t for t, _, _ in dev_rows) / 1e6
+    if busy_s <= 0.0:
+        raise AssertionError(f"{spec.name}: the profiler saw no device time")
+    flushes = r.net_stats["flush_passes"]
+    # network kernel calls: a flush each (net="device"), else a re-rate
+    net_calls = flushes or r.net_stats["rerate_calls"]
+    net_kernels = sum(c for _, key, c in dev_rows if "cluster_kernel" in key)
+    out = dict(jobs=n_jobs, wall_s_under_profiler=wall, device_busy_s=busy_s,
+               busy_share=busy_s / wall, net_calls=net_calls,
+               network_kernel_launches=net_kernels,
+               device_ops=sum(c for _, _, c in dev_rows))
+    print(f"[telemetry] busy {spec.name} "
+          + " ".join(f"{k}={v!r}" for k, v in out.items()))
+    for t, key, count in sorted(dev_rows, reverse=True)[:8]:
+        print(f"[telemetry]   device {key[:60]:<60} total_us={t!r} "
+              f"count={count}")
+    return out
+
+
+def twin_addresses(dev) -> dict:
+    """A simulator deep-copied before it runs (the sanitizer's twins are
+    such copies): every cached address of the copy's network engine
+    (slot tensors, page-locked and device buffers, mapped result word)
+    differs from the original's, and running the copy to its end leaves
+    the original's slot tensors and packed buffer as they were."""
+    import copy
+
+    import torch
+
+    from repro_torch.core import (GridConfig, GridSimulator, build_catalog,
+                                  build_topology, generate_jobs)
+
+    cfg = GridConfig(n_regions=2, sites_per_region=4)
+    topo = build_topology(cfg)
+    catalog = build_catalog(cfg, topo)
+    sim = GridSimulator(topo, catalog, device=dev)
+    for info in catalog.files.values():
+        sim.storage.bootstrap(info.master_site, info.lfn)
+    for j, job in enumerate(generate_jobs(cfg, 40)):
+        sim.submit_job(job, at=(j // 8) * cfg.interarrival * 8)
+    net = sim.network
+    before = [t.clone() for t in (net.rem, net.rate, net.eta, net.due,
+                                  net.active, net.path)]
+    packed = net._inputs._f64.tobytes()   # uninitialised words may be NaN
+    twin = copy.deepcopy(sim)
+    tnet = twin.network
+    ours = set(net._slots.ptrs) | {net._inputs.host_ptr, net._inputs.dev_ptr,
+                                   net._inputs.word_ptr}
+    theirs = set(tnet._slots.ptrs) | {tnet._inputs.host_ptr,
+                                      tnet._inputs.dev_ptr,
+                                      tnet._inputs.word_ptr}
+    if ours & theirs or len(theirs) != 9:
+        raise AssertionError(f"the twin shares addresses: {ours & theirs}")
+    if tnet._slots.rem is not tnet.rem:
+        raise AssertionError("the twin's slot arrays are not its tensors")
+    r = twin.run()
+    torch.cuda.synchronize(dev)
+    after = (net.rem, net.rate, net.eta, net.due, net.active, net.path)
+    if not all(torch.equal(a, b) for a, b in zip(before, after)) or \
+            net._inputs._f64.tobytes() != packed:
+        raise AssertionError("running the twin wrote into the original")
+    if len(r.records) != 40 or tnet.stats["rerate_calls"] == 0:
+        raise AssertionError(f"the twin did not run: {len(r.records)}")
+    print(f"[telemetry] twin addresses distinct ({len(theirs)}), the "
+          f"original untouched after the twin's {tnet.stats['rerate_calls']}"
+          f" re-rates")
+    return {"addresses": len(theirs),
+            "twin_rerate_calls": tnet.stats["rerate_calls"]}
+
+
+def probe_cost(dev, n: int = 20000) -> dict:
+    """Microseconds of one empty ``obs="report"`` span on an idle card,
+    with the simulator's sync (the current stream's ``synchronize``),
+    with ``torch.cuda.synchronize`` of the device, and with none."""
+    import functools
+
+    import torch
+
+    from repro_torch.obs import make_probe
+
+    out = {}
+    for label, sync in (
+            ("stream_synchronize", torch.cuda.current_stream(dev).synchronize),
+            ("device_synchronize", functools.partial(torch.cuda.synchronize,
+                                                     dev)),
+            ("none", None)):
+        probe = make_probe("report", sync=sync)
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        for _ in range(n):
+            with probe.span("x"):
+                pass
+        out[label] = 1e6 * (time.perf_counter() - t0) / n
+    print("[telemetry] us per empty span: "
+          + " ".join(f"{k}={v!r}" for k, v in out.items()))
+    return out
+
+
+def phase_telemetry(dev, scale_result) -> dict:
+    """Phase 10: the telemetry, the conservation audit and the tie-race
+    sanitizer on the card, each against its CPU run; returns the card
+    runs' launch counts and records."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.analysis.conserve import (conservation_audit,
+                                               run_conservation_smoke)
+    from repro_torch.analysis.tierace import sanitize_smoke
+    from repro_torch.core import SCENARIOS
+    from repro_torch.kernels import _cuda
+    from repro_torch.launch.experiments import run_spec
+
+    cpu = torch.device("cpu")
+    out: dict = {"launches": {}}
+    metrics = ("avg_job_time", "makespan", "avg_inter_comms",
+               "completed_jobs")
+    spec = dataclasses.replace(SCENARIOS["grid_500_saturated"], obs="trace")
+    traced = {}
+    for device in (dev, cpu):
+        with watch_engines() as (_, packs):
+            _cuda.reset_launches()
+            t0 = time.perf_counter()
+            r = run_spec(spec, n_jobs=SCALE_JOBS, device=device)
+            torch.cuda.synchronize(dev)
+            wall = time.perf_counter() - t0
+            launches = dict(_cuda.LAUNCHES)
+        traced[device.type] = (r, packs["empty_flushes"], launches)
+        tel = r.telemetry
+        bd = tel.phase_breakdown()
+        print(f"[telemetry] {spec.name} jobs={SCALE_JOBS} obs=trace "
+              f"device={device} wall_s={wall!r} tel_wall_s={tel.wall_s!r} "
+              f"phases={bd} trace_events={len(tel.trace)} "
+              f"samples={tel.n_samples} launches={launches}")
+    (rc, empty, launches), (rh, _, host) = traced["cuda"], traced["cpu"]
+    tel = rc.telemetry
+    for m in metrics:
+        if getattr(rc, m) != getattr(scale_result, m):
+            raise AssertionError(f"obs=trace moved {m}: "
+                                 f"{getattr(rc, m)!r} != phase 5's "
+                                 f"{getattr(scale_result, m)!r}")
+    bd = tel.phase_breakdown()
+    if abs(sum(bd.values()) - tel.wall_s) > 4e-6 or bd["other_s"] < 0 or \
+            sum(tel.phase_self_s.values()) > tel.wall_s:
+        raise AssertionError(f"the buckets do not partition wall_s "
+                             f"{tel.wall_s!r}: {bd}")
+    if tel.counters != rh.telemetry.counters:
+        diff = {k: (tel.counters.get(k), rh.telemetry.counters.get(k))
+                for k in set(tel.counters) | set(rh.telemetry.counters)
+                if tel.counters.get(k) != rh.telemetry.counters.get(k)}
+        raise AssertionError(f"counters: card != CPU: {diff}")
+    spans = tel.phase_calls["net.flush"]
+    # a flush that finds no active transfer launches nothing
+    if spans != tel.counters["net.flush_passes"] or \
+            spans != launches["event_engine"] + empty:
+        raise AssertionError(f"net.flush spans {spans} != event_engine "
+                             f"launches {launches['event_engine']} + "
+                             f"{empty} empty flushes")
+    if any(host.values()):
+        raise AssertionError("the CPU run launched a kernel")
+    out["launches"]["grid_500_saturated obs=trace"] = launches
+    out["trace"] = dict(wall_s=tel.wall_s, phases=bd,
+                        phase_self_s=tel.phase_self_s,
+                        phase_calls=tel.phase_calls, flush_spans=spans,
+                        empty_flushes=empty)
+
+    # phase 7's paths under obs="report": the reference's metrics still
+    for name, (scenario, replace, n_jobs) in PATHS.items():
+        spec = dataclasses.replace(SCENARIOS[scenario], obs="report",
+                                   **replace)
+        _cuda.reset_launches()
+        r = run_spec(spec, n_jobs=n_jobs, device=dev)
+        launches = dict(_cuda.LAUNCHES)
+        bd = r.telemetry.phase_breakdown()
+        print(f"[telemetry] {name} obs=report jobs={n_jobs} "
+              f"tel_wall_s={r.telemetry.wall_s!r} phases={bd} "
+              f"launches={launches}")
+        for m in metrics:
+            if getattr(r, m) != REFERENCE[name][m]:
+                raise AssertionError(f"{name} obs=report: {m} "
+                                     f"{getattr(r, m)!r} != the "
+                                     f"reference's {REFERENCE[name][m]!r}")
+        for k in PATH_KERNELS[name]:
+            if launches[k] == 0:
+                raise AssertionError(f"{name} obs=report never launched {k}")
+        out["launches"][f"{name} obs=report"] = launches
+
+    out["busy"] = {
+        name: device_trace(dataclasses.replace(SCENARIOS[name], **rep),
+                           TRACE_JOBS, dev)
+        for name, rep in (("grid_500_saturated", {}),
+                          ("grid_500_evict", {"strategy_mode": "batch"}))}
+
+    audits = {}
+    for device in (dev, cpu):
+        _cuda.reset_launches()
+        reports = run_conservation_smoke(device=device) + [
+            conservation_audit("grid_500_saturated", n_jobs=SCALE_JOBS,
+                               net="device", device=device)]
+        audits[device.type] = (reports, dict(_cuda.LAUNCHES))
+        for rep in reports:
+            print(f"[telemetry] conservation {rep['scenario']} "
+                  f"jobs={rep['n_jobs']} net={rep['net']} device={device} "
+                  f"ok={rep['ok']} checks="
+                  + ",".join(f"{k}:{c['ok']}"
+                             for k, c in rep["checks"].items()))
+    (card_reports, launches), (cpu_reports, host) = (audits["cuda"],
+                                                     audits["cpu"])
+    for rep in card_reports:
+        if not rep["ok"]:
+            raise AssertionError(f"conservation {rep['scenario']}: "
+                                 f"{rep['checks']}")
+    if card_reports != cpu_reports:
+        raise AssertionError("conservation reports: card != CPU")
+    for k in ("net_rerate", "event_engine", "value_score"):
+        if launches[k] == 0:
+            raise AssertionError(f"the conservation runs never launched {k}")
+    if any(host.values()):
+        raise AssertionError("the CPU audits launched a kernel")
+    out["launches"]["conservation"] = launches
+
+    sanitized = {}
+    for device in (dev, cpu):
+        _cuda.reset_launches()
+        t0 = time.perf_counter()
+        sanitized[device.type] = sanitize_smoke(device=device)
+        torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+        print(f"[telemetry] sanitize_smoke device={device} wall_s={wall!r} "
+              f"ties_seen={sanitized[device.type]['ties_seen']} "
+              f"tie_races={len(sanitized[device.type]['tie_races'])} "
+              f"launches={_cuda.LAUNCHES}")
+        if device.type == "cuda":
+            launches = dict(_cuda.LAUNCHES)
+    if not sanitized["cuda"] == sanitized["cpu"] == SANITIZE_REFERENCE:
+        raise AssertionError(f"sanitize_smoke: card {sanitized['cuda']} / "
+                             f"CPU {sanitized['cpu']} / reference "
+                             f"{SANITIZE_REFERENCE}")
+    if launches["net_rerate"] == 0:
+        raise AssertionError("sanitize_smoke never launched net_rerate")
+    out["launches"]["sanitize_smoke"] = launches
+    out["sanitize"] = {k: sanitized["cuda"][k] if k == "ties_seen" else
+                       len(sanitized["cuda"][k])
+                       for k in ("ties_seen", "tie_races")}
+    out["twins"] = twin_addresses(dev)
+    out["span_us"] = probe_cost(dev)
+    return out
 
 
 def roofline(bytes_: float, flops: float, peak: float,
@@ -1241,12 +1559,14 @@ def main() -> int:
 
     kernels = phase_kernels(dev)
     dense = phase_dense_kernels(dev)
-    golden, scale = phase_golden(dev), phase_scale(dev)
+    golden = phase_golden(dev)
+    scale, scale_result = phase_scale(dev)
     shapes: dict = {}
     paths = phase_paths(dev, shapes)
     path_shape = phase_path_shape(dev, shapes["grid_500_evict"])
     model = phase_model_kernels(dev)
     served = phase_serve(dev)
+    telemetry = phase_telemetry(dev, scale_result)
     launches = {"net_rerate": golden["net_rerate"],
                 "event_engine": scale["event_engine"]}
     by_path = {name: {p: paths[p][name] for p, ks in PATH_KERNELS.items()
@@ -1358,6 +1678,13 @@ def main() -> int:
                 "tensor_core_instructions": sass["tensor_core_instructions"]}
                if name == "flash_attention" else {}),
         })
+    for entry in summary:
+        entry["phase10_launches"] = {
+            p: counts[entry["name"]]
+            for p, counts in telemetry["launches"].items()
+            if counts.get(entry["name"])}
+    print("[telemetry] summary " + json.dumps(
+        {k: v for k, v in telemetry.items() if k != "launches"}))
     print(smi)
     print(json.dumps({"kernels": summary}))
     print(json.dumps({"ok": True, "device": {

@@ -22,7 +22,8 @@ from .scenarios import (ChurnSpec, SCENARIOS, SWEEPS, ScenarioSpec,
 from .scheduler import (DataAwareScheduler, Job, LeastLoadedScheduler,
                         RandomScheduler, SchedulerPolicy, SCHEDULERS,
                         ShortestTransferScheduler, make_scheduler)
-from .simulator import GridSimulator, JobRecord, NETS, OBS_MODES, SimResult
+from ..obs import OBS_MODES, TelemetryReport
+from .simulator import GridSimulator, JobRecord, NETS, SimResult, TieRace
 from .topology import GridTopology, Link, Region, Site
 from .torchsched import (TorchLeastLoadedBroker, TorchRandomBroker,
                          TorchScheduler, TorchShortestTransferBroker,
@@ -47,7 +48,7 @@ __all__ = [
     "DataAwareScheduler", "Job", "LeastLoadedScheduler", "RandomScheduler",
     "SchedulerPolicy", "SCHEDULERS", "ShortestTransferScheduler",
     "make_scheduler", "GridSimulator", "JobRecord", "NETS", "OBS_MODES",
-    "SimResult", "GridTopology", "Link", "Region", "Site",
+    "SimResult", "TelemetryReport", "TieRace", "GridTopology", "Link", "Region", "Site",
     "TorchLeastLoadedBroker", "TorchRandomBroker", "TorchScheduler",
     "TorchShortestTransferBroker", "leastloaded_select", "select_site_vec",
     "select_sites_batch", "GB", "MB", "GridConfig",

@@ -32,6 +32,8 @@ class ExperimentResult:
     net_stats: dict = dataclasses.field(default_factory=dict)
     prefetches: int = 0
     prefetch_gb: float = 0.0
+    #: :class:`repro_torch.obs.TelemetryReport` when an ``obs=`` mode is on
+    telemetry: object | None = None
 
 
 def run_experiment(
@@ -86,8 +88,12 @@ def run_experiment(
     value > 0 forces it on, 0 turns it off; its value matrix is scored by
     the ``value_score`` kernel on ``device``.
 
-    Kept for the reference's signature and still raising when it would
-    take effect: ``obs`` other than off.
+    ``obs`` picks the telemetry mode (:data:`repro_torch.obs.OBS_MODES`:
+    ``"off"``/``"report"``/``"series"``/``"trace"``; ``None`` defers to
+    the ``REPRO_OBS`` environment value, default off) and ``obs_interval``
+    the sim-seconds between ring-buffer samples. Observation-only: every
+    metric above is bit-identical under any mode; the report lands on
+    ``ExperimentResult.telemetry``.
     """
     topology = build_topology(
         cfg, path_model="topmost" if net == "topmost" else "full")
@@ -124,4 +130,5 @@ def run_experiment(
         net_stats=res.net_stats,
         prefetches=res.prefetches,
         prefetch_gb=res.prefetch_bytes / GB,
+        telemetry=res.telemetry,
     )

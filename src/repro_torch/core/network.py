@@ -42,7 +42,8 @@ rows, the staged writes and the index list into one buffer
 the staged writes first: on the card, one copy up from page-locked memory,
 one launch and one sync per call. The other readers of the slot tensors
 (``advance``, ``completions``, ``arrays``) apply the staged writes in one
-scatter of their own first (:meth:`_apply_staged`).
+scatter of their own first (:meth:`_apply_staged`); :meth:`slot_state`
+and :meth:`rem_now` lay them over a host copy instead.
 
 The point-bandwidth queries (:meth:`point_bandwidth_matrix`,
 :meth:`point_bandwidth_columns`) serve the batched planners, the
@@ -403,6 +404,35 @@ class NetworkEngine:
             # rate*dt and the subtraction are separate ops: never an FMA
             torch.clamp_min(self.rem - self.rate * dt, 0.0, out=self.rem)
         self.last = now
+
+    def slot_state(self, now: Optional[float] = None
+                   ) -> tuple[np.ndarray, np.ndarray]:
+        """``(rem_now(now), rate)`` per slot as host arrays, from one
+        device-to-host copy, with the staged alloc/release writes laid
+        over it (the slot tensors are not touched)."""
+        rem, rate, eta = torch.stack(
+            [self.rem, self.rate, self.eta]).cpu().numpy()
+        for slot, (size, _) in self._staged.items():
+            rem[slot], rate[slot], eta[slot] = size, 0.0, math.inf
+        if self.batched:
+            # the reference's expression, in numpy on the host as there
+            if now is None:
+                now = self.last
+            carried = rate > 0.0
+            eta_c = np.where(carried, eta, 0.0)
+            rem = np.maximum(
+                np.where(carried, rate * (eta_c - now), rem), 0.0)
+        return rem, rate
+
+    def rem_now(self, now: Optional[float] = None) -> np.ndarray:
+        """Remaining bytes per slot at ``now`` (default: the clock set by
+        the last :meth:`advance`/:meth:`flush`), as a host array. On the
+        batched backend this reconstructs ``rate * (eta - now)`` for slots
+        the last flush rated — the exact formulation the flush pass itself
+        uses — and reads the stored ``rem`` for fresh/released slots; on
+        the incremental backends ``rem`` is already integrated and is
+        returned as it stands."""
+        return self.slot_state(now)[0]
 
     def completions(self) -> list[int]:
         """Slot indices of active transfers with < 1 byte remaining, in

@@ -14,8 +14,7 @@ diurnal / bulk arrivals, site churn, and a cache-starved regime).
 
 The registry is the reference's (``repro.core.scenarios``), copied so the
 port runs the same named experiments:
-``python -m repro_torch.launch.experiments --scenario NAME``. Churn
-scenarios raise until the failure schedule is ported.
+``python -m repro_torch.launch.experiments --scenario NAME``.
 """
 
 from __future__ import annotations
@@ -24,11 +23,13 @@ import dataclasses
 import math
 import random as _random
 
+from ..fault.failures import churn_schedule
+from ..obs import OBS_MODES
 from .economy import ECON_BACKENDS
 from .quantities import GB, MB, MBPS_TO_BYTES_PER_S
 from .replica import STRATEGIES, STRATEGY_MODES
 from .scheduler import SCHEDULERS
-from .simulator import NETS, OBS_MODES
+from .simulator import NETS
 from .workload import GridConfig
 
 ARRIVALS = ("uniform", "poisson", "flash_crowd", "diurnal")
@@ -42,7 +43,7 @@ class ChurnSpec:
     ``n_failures`` outages are spread over ``window`` (seconds of sim time);
     each takes a distinct site offline for a duration drawn exponentially
     around ``mean_downtime_s``. Expansion into concrete ``(site, at,
-    duration)`` events is :func:`repro.fault.failures.churn_schedule`,
+    duration)`` events is :func:`repro_torch.fault.failures.churn_schedule`,
     deterministic under a seed.
     """
 
@@ -76,7 +77,7 @@ class ScenarioSpec:
     usually with ``broker="jax"``).
 
     *Injections* — ``churn`` expands into deterministic ``(site, at,
-    duration)`` failures via :func:`repro.fault.failures.churn_schedule`;
+    duration)`` failures via :func:`repro_torch.fault.failures.churn_schedule`;
     ``slowdowns`` are literal ``(site, at, duration, factor)`` stragglers.
 
     *Engine* — scheduler / replication strategy / broker registry names,
@@ -133,7 +134,7 @@ class ScenarioSpec:
     net: str = "numpy"
     econ: str = "numpy"              # value-scoring backend of the economy
     econ_interval_s: float | None = None   # None=auto (access-aware strategies)
-    obs: str = "off"                 # telemetry mode (repro.obs.OBS_MODES)
+    obs: str = "off"                 # telemetry mode (repro_torch.obs.OBS_MODES)
     obs_interval_s: float | None = None    # sim-seconds between OBS samples
     seeds: tuple[int, ...] = (0,)
 
@@ -296,11 +297,8 @@ def injections(spec: ScenarioSpec, seed: int = 0) -> tuple[
         list[tuple[int, float, float, float]]]:
     """Expand the spec's fault fields into run_experiment's
     ``(failures, slowdowns)`` lists."""
-    if spec.churn.n_failures > 0:
-        raise NotImplementedError(
-            f"{spec.name}: churn injection (fault/failures.py "
-            "churn_schedule) is not ported yet (ROADMAP queue 1 item 6)")
-    return [], [tuple(s) for s in spec.slowdowns]
+    failures = churn_schedule(spec.churn, spec.n_sites, seed=seed)
+    return failures, [tuple(s) for s in spec.slowdowns]
 
 
 # --------------------------------------------------------------------------

@@ -18,17 +18,23 @@ The replication economy (an armed ``econ_interval``, or the ``economic``
 and ``predictive`` strategies) runs as the periodic ``ECON`` event, its
 value matrix scored by the ``value_score`` kernel. The host-side event
 heap, queues and ``random.Random`` streams are the reference's, so results
-match it bit for bit.
-
-Not in this slice, and raising ``NotImplementedError``: telemetry
-(``obs=`` / ``REPRO_OBS`` other than off) and the tie-race sanitizer
-(``sanitize=True``). Failure, slowdown and speculative-backup injection
+match it bit for bit. Failure, slowdown and speculative-backup injection
 work as in the reference.
+
+Telemetry (:mod:`repro_torch.obs`; ``obs=`` or the ``REPRO_OBS``
+environment value) charges the reference's spans and counters, and on a
+CUDA device its spans wait for the card as they open and close; with obs
+off every hook is one ``is None`` check. ``sanitize=True`` is the
+reference's tie-race sanitizer: every instant with two or more events is
+replayed, order reversed, in a deep-copied twin (its own slot tensors and
+kernel buffers, :mod:`repro_torch.kernels.net_call`) and the observable
+states compared.
 """
 
 from __future__ import annotations
 
 import collections
+import copy
 import dataclasses
 import heapq
 import os
@@ -37,6 +43,7 @@ from typing import Optional
 
 import torch
 
+from ..obs import DEFAULT_OBS_INTERVAL_S, OBS_MODES, make_probe
 from .access import AccessHistory
 from .catalog import ReplicaCatalog
 from .economy import DEFAULT_INTERVAL_S, ECON_BACKENDS, ReplicationOptimizer
@@ -50,16 +57,24 @@ from .topology import GridTopology
 # events
 # --------------------------------------------------------------------------
 (SUBMIT, NET, CPU_DONE, FAIL, RECOVER, SLOW_START, SLOW_END, WATCHDOG,
- FLUSH, ECON) = range(10)
+ FLUSH, ECON, OBS) = range(11)
+
+EVENT_NAMES = ("SUBMIT", "NET", "CPU_DONE", "FAIL", "RECOVER", "SLOW_START",
+               "SLOW_END", "WATCHDOG", "FLUSH", "ECON", "OBS")
+
+#: Host-phase span charged for each handled event kind (telemetry only;
+#: ``None`` kinds are counted but not timed — they are rare control
+#: events). Nested spans (strategy planning inside a dispatch, a fused
+#: flush inside a NET completion) subtract out via the probe's
+#: exclusive-time accounting.
+_EVENT_PHASE = ("broker.dispatch", "net.events", "cpu.done", None, None,
+                None, None, None, "broker.dispatch", "econ.auction",
+                "obs.sample")
 
 #: Values the ``net=`` engine flag accepts: NetworkEngine backends plus
 #: ``"topmost"``, which keeps the numpy backend over a topology built with
 #: the legacy topmost-uplink accounting.
 NETS = BACKENDS + ("topmost",)
-
-#: Telemetry modes the reference accepts (``repro.obs.OBS_MODES``); only
-#: ``"off"`` runs in the port so far.
-OBS_MODES = ("off", "report", "series", "trace")
 
 
 @dataclasses.dataclass(eq=False)
@@ -111,6 +126,16 @@ class JobRecord:
         return self.finish_time - self.submit_time
 
 
+@dataclasses.dataclass(frozen=True)
+class TieRace:
+    """One same-timestamp event group whose handler order changes
+    observable state (found by the ``sanitize=True`` engine mode)."""
+
+    time: float
+    kinds: tuple[str, ...]       # event kinds in the tie group, seq order
+    detail: str                  # first state divergence, human-readable
+
+
 @dataclasses.dataclass
 class SimResult:
     records: list[JobRecord]
@@ -123,6 +148,8 @@ class SimResult:
     net_stats: dict = dataclasses.field(default_factory=dict)
     prefetches: int = 0
     prefetch_bytes: float = 0.0
+    #: :class:`repro_torch.obs.TelemetryReport` when an ``obs=`` mode is on.
+    telemetry: Optional[object] = None
 
     @property
     def avg_job_time(self) -> float:
@@ -161,15 +188,14 @@ class GridSimulator:
         sanitize: bool = False,
         device: "str | torch.device" = "cuda",
     ) -> None:
+        # obs=None defers to the REPRO_OBS environment value, so existing
+        # entry points (the golden suites included) can run unchanged with
+        # telemetry forced on
         if obs is None:
             obs = os.environ.get("REPRO_OBS", "off")
         if obs not in OBS_MODES:
             raise ValueError(f"unknown obs mode {obs!r} "
                              f"(want one of {OBS_MODES})")
-        if obs != "off":
-            raise NotImplementedError(
-                f"obs={obs!r}: telemetry is not ported yet (ROADMAP queue 1 "
-                "item 7); run with obs off and REPRO_OBS unset or 'off'")
         if econ not in ECON_BACKENDS:
             raise ValueError(f"unknown econ backend {econ!r} "
                              f"(want one of {ECON_BACKENDS})")
@@ -238,6 +264,21 @@ class GridSimulator:
         else:
             self._econ = None
         self._econ_armed = False
+        # -- telemetry (repro_torch.obs; off by default) ------------------
+        # with obs off, self._obs is None and every hot-path guard below is
+        # a single `is None` check; on a CUDA device the probe's spans wait
+        # for the card as they open and close (every kernel and copy of the
+        # engine runs on the device's current stream)
+        self._obs = make_probe(
+            obs, sync=(torch.cuda.current_stream(self.device).synchronize
+                       if self.device.type == "cuda" else None))
+        self._obs_interval = (DEFAULT_OBS_INTERVAL_S if obs_interval is None
+                              else obs_interval)
+        self._obs_armed = False
+        # time of the last handled *non-OBS* event: the makespan under an
+        # obs mode. Trailing OBS samples advance self.now past the real
+        # workload end; counting them would break observation-only.
+        self._obs_real_now = 0.0
         if broker == "jax":
             # the batch broker flag keeps the reference's name
             from . import torchsched
@@ -273,17 +314,21 @@ class GridSimulator:
             raise ValueError(f"unknown broker {broker!r} (want 'event'|'jax')")
         self._batch_buf: list[Job] = []
         self._flush_pending = False
-        if sanitize:
-            # twin replay deep-copies the engine; the batch brokers and the
-            # batched planners ride catalog/storage listeners a copy drops
-            if self._batch_broker is not None or self._batched_strategy:
-                raise ValueError(
-                    "sanitize=True requires broker='event' and "
-                    "strategy_mode='sequential' (twin replay deep-copies "
-                    "the engine, dropping listeners)")
-            raise NotImplementedError(
-                "sanitize=True: the tie-race sanitizer is not ported yet "
-                "(ROADMAP queue 1 item 8)")
+        # -- tie-race sanitizer -----------------------------------------
+        # For every group of >= 2 events sharing a timestamp, a deep-copied
+        # twin replays the instant with the group's order reversed and the
+        # canonicalized observable states are compared. Twin replay
+        # deep-copies the engine; the batch brokers and the batched
+        # planners ride catalog/storage listeners a copy drops.
+        if sanitize and (self._batch_broker is not None
+                         or self._batched_strategy):
+            raise ValueError(
+                "sanitize=True requires broker='event' and "
+                "strategy_mode='sequential' (twin replay deep-copies "
+                "the engine, dropping listeners)")
+        self.sanitize = sanitize
+        self.ties_seen = 0
+        self.tie_races: list[TieRace] = []
 
         self._q: list[tuple[float, int, int, object]] = []
         self._seq = 0
@@ -347,7 +392,11 @@ class GridSimulator:
         self.network.advance(self.now)
 
     def _net_rerate(self, changed: tuple[int, ...] = ()) -> None:
-        eta = self.network.rerate(changed, self.now)
+        if self._obs is None:
+            eta = self.network.rerate(changed, self.now)
+        else:
+            with self._obs.span("net.rerate"):
+                eta = self.network.rerate(changed, self.now)
         if self.network.batched:
             # deferred: the single fused flush at the end of the drained
             # instant re-rates and reschedules the NET wake-up
@@ -363,7 +412,11 @@ class GridSimulator:
         net = self.network
         if not net.dirty:
             return
-        eta = net.flush(self.now)
+        if self._obs is None:
+            eta = net.flush(self.now)
+        else:
+            with self._obs.span("net.flush"):
+                eta = net.flush(self.now)
         self._net_version += 1
         if eta is not None:
             self._push(eta, NET, self._net_version)
@@ -385,8 +438,15 @@ class GridSimulator:
         link_ids = self.topology.link_ids_for(plan.src, plan.dst)
         # evictions + space reservation happen at transfer start
         if plan.store:
-            for victim in plan.evictions:
-                self.storage.remove(plan.dst, victim)
+            if plan.evictions and self._obs is not None:
+                self._obs.count("evict.transfers")
+                self._obs.count("evict.victims", len(plan.evictions))
+                with self._obs.span("evict.apply"):
+                    for victim in plan.evictions:
+                        self.storage.remove(plan.dst, victim)
+            else:
+                for victim in plan.evictions:
+                    self.storage.remove(plan.dst, victim)
             self.topology.sites[plan.dst].used_storage += size  # reserve
         self.storage.pin(plan.src, plan.lfn)   # source can't be evicted mid-copy
         self._tid += 1
@@ -501,7 +561,16 @@ class GridSimulator:
             self._schedule(batch[0])
             return
         assert self._batch_broker is not None
-        sites = self._batch_broker.select_batch([j.required for j in batch])
+        obs = self._obs
+        if obs is None:
+            sites = self._batch_broker.select_batch(
+                [j.required for j in batch])
+        else:
+            obs.count("broker.batches")
+            obs.count("broker.batch_jobs", len(batch))
+            with obs.span("broker.select_batch"):
+                sites = self._batch_broker.select_batch(
+                    [j.required for j in batch])
         if self._batched_strategy:
             # burst-level plan consumption: place everything first, then
             # plan every job's missing files in one strategy_plan pass
@@ -531,11 +600,16 @@ class GridSimulator:
             return
         lfn = self._next_missing(js)
         if lfn is not None:
+            obs = self._obs
             plan = js.plan_cache.pop(lfn, None)
             if plan is not None:
                 plan = self._live_plan(plan)
             if plan is None:
-                plan = self.strategy.plan_fetch(lfn, js.site)
+                if obs is None:
+                    plan = self.strategy.plan_fetch(lfn, js.site)
+                else:
+                    with obs.span("strategy.plan"):
+                        plan = self.strategy.plan_fetch(lfn, js.site)
             js.pending_transfers += 1
             self._start_transfer(plan, js)
             return
@@ -554,7 +628,14 @@ class GridSimulator:
         very replica a later plan counted on."""
         pairs = [(lfn, js.site) for js in jss for lfn in js.missing]
         if pairs:
-            plans = self.strategy.plan_batch(pairs)
+            obs = self._obs
+            if obs is None:
+                plans = self.strategy.plan_batch(pairs)
+            else:
+                obs.count("strategy.plan_batch_calls")
+                obs.count("strategy.plan_batch_pairs", len(pairs))
+                with obs.span("strategy.plan"):
+                    plans = self.strategy.plan_batch(pairs)
             owners = (js for js in jss for _ in js.missing)
             for js, (lfn, _), plan in zip(owners, pairs, plans):
                 js.plan_cache[lfn] = plan
@@ -570,15 +651,24 @@ class GridSimulator:
         (an inter-region plan whose file now has a regional copy). The
         guards run in the reference's order; another order changes which
         of keep, reverdict and replan a plan gets."""
+        obs = self._obs
         if plan.store and (plan.dst, plan.lfn) in self._inflight:
+            if obs is not None:
+                obs.count("plan_cache.keep")
             return plan      # piggybacks onto the in-flight transfer
         if not self.catalog.has_replica(plan.lfn, plan.src):
+            if obs is not None:
+                obs.count("plan_cache.replan")
             return None      # the chosen source was evicted since the burst
         if not (self.topology.sites[plan.src].online
                 or self.catalog.is_master(plan.lfn, plan.src)):
+            if obs is not None:
+                obs.count("plan_cache.replan")
             return None
         if plan.inter_region and self.catalog.duplicated_in_region(
                 plan.lfn, plan.dst, self.topology):
+            if obs is not None:
+                obs.count("plan_cache.replan")
             return None      # a regional copy appeared since the burst:
             # keeping the snapshot's WAN source would double-count
             # inter-region traffic the sequential pipeline avoids
@@ -593,13 +683,23 @@ class GridSimulator:
                             for l in plan.evictions)
                     and free + sum(self.catalog.size(l)
                                    for l in plan.evictions) >= need):
+                if obs is not None:
+                    obs.count("plan_cache.keep")
                 return plan
         elif plan.store:
             if free >= need:
+                if obs is not None:
+                    obs.count("plan_cache.keep")
                 return plan
         elif free < need:    # store=False stays the right call only
+            if obs is not None:
+                obs.count("plan_cache.keep")
             return plan      # while the file cannot fit
-        return self.strategy.refresh_plan(plan)
+        if obs is None:
+            return self.strategy.refresh_plan(plan)
+        obs.count("plan_cache.reverdict")
+        with obs.span("strategy.plan"):
+            return self.strategy.refresh_plan(plan)
 
     def _working_set_missing(self, js: _JobState) -> list[str]:
         return [f for f in js.job.required
@@ -701,6 +801,8 @@ class GridSimulator:
         waiter-less store transfers. Prefetches ride the same fluid model
         as job fetches, so the cost side of the economy is real."""
         assert self._econ is not None
+        if self._obs is not None:
+            self._obs.count("econ.rounds")
         self._net_advance()
         for prop in self._econ.step(self.now):
             # revalidate against the live state: an earlier winner in this
@@ -718,11 +820,32 @@ class GridSimulator:
                 self.catalog.size(l) for l in prop.evictions)
             if free < self.catalog.size(prop.lfn):
                 continue
+            if self._obs is not None:
+                self._obs.count("econ.prefetch_started")
             self._start_transfer(prop.to_plan(self.topology), None)
         if len(self.records) < self._n_expected:
             self._push(self.now + self._econ_interval, ECON, None)
         else:
             self._econ_armed = False   # workload drained; disarm
+
+    # -- telemetry sampling (repro_torch.obs) --------------------------------
+    def _obs_sample(self) -> None:
+        """One periodic OBS sampling round: append a row of grid-state
+        channels to the telemetry ring buffer. Strictly read-only over
+        engine state, so the event's presence in the heap never changes
+        observable results — the same contract the sanitizer's twin
+        replay relies on (twins drop the probe on deepcopy and their OBS
+        events no-op here)."""
+        obs = self._obs
+        if obs is not None and obs.sampler is not None:
+            obs.sampler.sample(self)
+        # the repush depends only on the armed flag, not on the probe:
+        # sanitizer twins drop the probe on deepcopy but must keep the
+        # event stream (and hence the pending-queue digest) identical
+        if self._obs_armed and len(self.records) < self._n_expected:
+            self._push(self.now + self._obs_interval, OBS, None)
+        else:
+            self._obs_armed = False
 
     # -- failures / stragglers ----------------------------------------------
     def _fail_site(self, site: int) -> None:
@@ -791,8 +914,21 @@ class GridSimulator:
             # history holds a usable demand signal
             self._econ_armed = True
             self._push(self.now + self._econ_interval, ECON, None)
+        obs = self._obs
+        if obs is not None and obs.sampler is not None and \
+                not self._obs_armed and self._obs_interval > 0:
+            # sim-time sampling clock, mirroring the ECON arming: one
+            # baseline sample now, then one OBS event per interval until
+            # the workload drains
+            self._obs_armed = True
+            obs.sampler.sample(self)
+            self._push(self.now + self._obs_interval, OBS, None)
         batched = self.network.batched
         while self._q:
+            if self.sanitize:
+                if not self._sanitize_step(until):
+                    break
+                continue
             if batched:
                 # batched drain: handle every event sharing the head
                 # timestamp, then one fused network pass for the instant
@@ -806,18 +942,41 @@ class GridSimulator:
             if t > until:
                 break
             self.now = t
-            self._handle_event(kind, payload)
+            self._handle(kind, payload)
         total_ic = sum(r.inter_comms for r in self.records)
+        telemetry = None
+        makespan = self.now
+        if obs is not None:
+            makespan = self._obs_real_now
+            obs.merge_counters("net", self.network.stats)
+            telemetry = obs.finalize(net_stats=self.network.stats)
         return SimResult(
             records=self.records,
             total_inter_comms=total_ic,
             total_wan_bytes=self.total_wan_bytes,
             total_lan_bytes=self.total_lan_bytes,
-            makespan=self.now,
+            makespan=makespan,
             net_stats=dict(self.network.stats),
             prefetches=self.access.prefetches,
             prefetch_bytes=self.access.prefetch_bytes,
+            telemetry=telemetry,
         )
+
+    def _handle(self, kind: int, payload: object) -> None:
+        """Dispatch one popped event (``self.now`` already advanced),
+        charging its telemetry phase when a probe is attached — the one
+        per-event hot-path branch the obs="off" contract allows."""
+        obs = self._obs
+        if obs is None:
+            return self._handle_event(kind, payload)
+        if kind != OBS:
+            self._obs_real_now = self.now
+        obs.event(EVENT_NAMES[kind], self.now)
+        phase = _EVENT_PHASE[kind]
+        if phase is None:
+            return self._handle_event(kind, payload)
+        with obs.span(phase):
+            return self._handle_event(kind, payload)
 
     def _handle_event(self, kind: int, payload: object) -> None:
         t = self.now
@@ -880,6 +1039,35 @@ class GridSimulator:
             self._watchdog(payload)  # type: ignore[arg-type]
         elif kind == ECON:
             self._econ_round()
+        elif kind == OBS:
+            self._obs_sample()
+
+    # -- tie-race sanitizer ------------------------------------------------
+    def _sanitize_step(self, until: float) -> bool:
+        """Process one *instant* (every event sharing the head timestamp);
+        when the instant is a tie group, replay it order-reversed in a
+        deep-copied twin and record any observable-state divergence.
+        Returns False when the run should stop (head event past ``until``
+        — popped and dropped, matching the normal loop)."""
+        t = self._q[0][0]
+        if t > until:
+            heapq.heappop(self._q)
+            return False
+        group = sorted(e for e in self._q if e[0] == t)
+        twin = self._tie_twin(t) if len(group) > 1 else None
+        if twin is not None:
+            self.ties_seen += 1
+        self._drain_instant(t)
+        if twin is not None:
+            twin._drain_instant(t)
+            diff = _digest_diff(self._state_digest(), twin._state_digest())
+            if diff is not None:
+                self.tie_races.append(TieRace(
+                    time=t,
+                    kinds=tuple(EVENT_NAMES[e[2]] for e in group),
+                    detail=diff,
+                ))
+        return True
 
     def _drain_instant(self, t0: float) -> None:
         """Pop and handle every event at time ``t0``, including events the
@@ -891,5 +1079,120 @@ class GridSimulator:
             while self._q and self._q[0][0] <= t0:
                 t, _, kind, payload = heapq.heappop(self._q)
                 self.now = t
-                self._handle_event(kind, payload)
+                self._handle(kind, payload)
             self._net_flush()
+
+    def _tie_twin(self, t: float) -> "GridSimulator":
+        """Deep-copied engine whose events at ``t`` are re-queued in
+        reversed seq order (fresh seq numbers keep the (time, seq) key
+        shape; among themselves they pop in the reversed order). The copy
+        owns its slot tensors and kernel buffers
+        (``SlotArrays``/``NetInputs.__deepcopy__``), so its launches write
+        nothing of this engine's."""
+        twin = copy.deepcopy(self)
+        group = []
+        while twin._q and twin._q[0][0] == t:
+            group.append(heapq.heappop(twin._q))
+        for _, _, kind, payload in reversed(group):
+            twin._push(t, kind, payload)
+        return twin
+
+    def _state_digest(self) -> dict:
+        """Canonicalized observable state for twin comparison. Anything
+        whose order is *not* semantic (records, holder sets, transfer
+        tables, the pending-event multiset) is sorted; anything whose
+        order *is* semantic (per-site FIFO CPU queues) keeps its order so
+        a genuine ordering race shows up. Internal version counters, PRNG
+        positions and heap seq numbers are excluded — bookkeeping, not
+        observable results. The slot state comes to the host in one copy
+        (:meth:`NetworkEngine.slot_state`)."""
+        d: dict = {"now": self.now}
+        d["records"] = sorted(
+            (r.job_id, r.job_type, r.site, r.submit_time, r.data_ready_time,
+             r.start_time, r.finish_time, r.inter_comms, r.wan_bytes,
+             r.resubmits)
+            for r in self.records)
+        d["sites"] = [(s.site_id, s.online, s.used_storage, s.queued_work,
+                       s.compute_capacity) for s in self.topology.sites]
+        d["storage"] = [sorted(self.storage.site_contents(s.site_id))
+                        for s in self.topology.sites]
+        d["catalog"] = [(lfn, sorted(self.catalog.holders(lfn)))
+                        for lfn in self.catalog.files]
+        rem_now, rate = self.network.slot_state(self.now)
+        d["transfers"] = sorted(
+            (tr.plan.lfn, tr.plan.src, tr.plan.dst, bool(tr.plan.store),
+             float(rem_now[tr.slot]),
+             float(rate[tr.slot]),
+             sorted(w.job.job_id for w in tr.waiters))
+            for tr in self._transfers.values())
+        d["cpu"] = [
+            (s.site_id,
+             None if self._running[s.site_id] is None
+             else self._running[s.site_id].job.job_id,
+             [js.job.job_id for js in self._cpu_queue[s.site_id]
+              if not js.done])
+            for s in self.topology.sites]
+        d["jobs"] = sorted(
+            (js.job.job_id, site_id, tuple(js.missing),
+             js.pending_transfers, js.data_ready_time, js.start_time,
+             js.done, js.is_backup, js.rounds)
+            for site_id, jobs in self._site_jobs.items()
+            for js in jobs)
+        d["queue"] = sorted(
+            (e[0], e[2], _payload_digest(e[2], e[3])) for e in self._q)
+        d["totals"] = (
+            self.total_wan_bytes, self.total_lan_bytes,
+            sorted(self._inter_comms.items()),
+            sorted(self._wan_bytes.items()),
+            sorted(self._resubmits.items()))
+        return d
+
+
+def _payload_digest(kind: int, payload: object) -> tuple:
+    """Order-comparison key for a pending event's payload. Version
+    counters (NET, CPU_DONE) are *excluded*: twins bump them in different
+    interleavings while converging to the same physical state."""
+    if kind == SUBMIT:
+        return ("job", payload.job_id)             # type: ignore[union-attr]
+    if kind == NET:
+        return ("net",)
+    if kind == CPU_DONE:
+        return ("cpu", payload[0])                 # type: ignore[index]
+    if kind in (FAIL, RECOVER):
+        return ("site", payload)
+    if kind in (SLOW_START, SLOW_END):
+        return ("slow",) + tuple(payload)          # type: ignore[arg-type]
+    if kind == WATCHDOG:
+        return ("watchdog", payload.job.job_id)    # type: ignore[union-attr]
+    return (EVENT_NAMES[kind],)
+
+
+def _digest_diff(a: object, b: object, path: str = "state"
+                 ) -> Optional[str]:
+    """First divergence between two state digests, human-readable."""
+    if type(a) is not type(b):
+        return f"{path}: {type(a).__name__} != {type(b).__name__}"
+    if isinstance(a, dict):
+        assert isinstance(b, dict)
+        for k in a:
+            if k not in b:
+                return f"{path}.{k}: missing in twin"
+            diff = _digest_diff(a[k], b[k], f"{path}.{k}")
+            if diff is not None:
+                return diff
+        extra = [k for k in b if k not in a]
+        if extra:
+            return f"{path}.{extra[0]}: only in twin"
+        return None
+    if isinstance(a, (list, tuple)):
+        assert isinstance(b, (list, tuple))
+        if len(a) != len(b):
+            return f"{path}: length {len(a)} != {len(b)}"
+        for i, (x, y) in enumerate(zip(a, b)):
+            diff = _digest_diff(x, y, f"{path}[{i}]")
+            if diff is not None:
+                return diff
+        return None
+    if a != b:
+        return f"{path}: {a!r} != {b!r}"
+    return None

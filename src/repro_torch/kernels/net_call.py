@@ -20,9 +20,18 @@ An engine call of ``net_rerate`` or ``event_engine`` takes two things:
 
 The plain versions read the same packed buffer (:meth:`NetInputs.tensors`),
 so the CPU tests exercise the layout the kernels read.
+
+Both classes cache raw addresses (the slot tensors' ``data_ptr``, the
+page-locked and device buffers, the mapped result word). A ``deepcopy``
+that copied those integers would send a copy's launches into the
+original's memory, so each class's ``__deepcopy__`` gives the copy its
+own buffers and recomputes every address (the tie-race sanitizer's twin
+engines are deep copies).
 """
 
 from __future__ import annotations
+
+import copy
 
 import numpy as np
 import torch
@@ -56,6 +65,13 @@ class SlotArrays:
                            (path, rem, rate, eta, due, active))
                      if self.device.type == "cuda" else None)
 
+    def __deepcopy__(self, memo: dict) -> "SlotArrays":
+        """Copies of the tensors (shared through ``memo`` with the rest of
+        a deep-copied engine) and their own addresses."""
+        return SlotArrays(*(copy.deepcopy(t, memo) for t in
+                            (self.path, self.rem, self.rate, self.eta,
+                             self.due, self.active)))
+
 
 class NetInputs:
     """One call's host inputs in one buffer (see the module docstring);
@@ -75,6 +91,17 @@ class NetInputs:
             self._result = self._word.numpy()
             self.word_ptr = self._word.data_ptr()
         self._reserve(16 * n_links + 64 * (depth + 4))
+
+    def __deepcopy__(self, memo: dict) -> "NetInputs":
+        """A copy with its own host buffer (page-locked on a card), device
+        buffer and mapped result word, holding the same packed call."""
+        clone = NetInputs(self.n_links, self.depth, self.device)
+        clone._reserve(self.capacity)
+        clone._f64.view(np.uint8)[: self.capacity] = self._f64.view(np.uint8)
+        clone.n_staged, clone.n_idx = self.n_staged, self.n_idx
+        if self.device.type == "cuda":
+            clone._result[0] = self._result[0]
+        return clone
 
     def _reserve(self, nbytes: int) -> None:
         if nbytes <= self.capacity:

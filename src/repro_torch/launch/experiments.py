@@ -13,11 +13,16 @@ versions):
 It prints one line per run and, with ``--out PATH``, writes the rows as
 JSON in the reference's ``BENCH_scenarios.json`` layout (the port never
 writes the reference's ``results/``). Each row names the device it ran on.
+``--obs MODE`` runs every scenario under a telemetry mode: each row then
+carries the four-phase wall breakdown and the probe counters, and
+``--obs-dir DIR`` receives each run's telemetry JSON (and, under
+``--obs trace``, its Perfetto trace and JSONL event log).
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import time
@@ -25,7 +30,7 @@ from typing import Iterable, Sequence
 
 import torch
 
-from repro_torch.core import (ExperimentResult, SCENARIOS, SWEEPS,
+from repro_torch.core import (ExperimentResult, OBS_MODES, SCENARIOS, SWEEPS,
                               ScenarioSpec, SweepSpec, arrival_schedule,
                               get_scenario, get_sweep, injections,
                               run_experiment, to_grid_config)
@@ -61,8 +66,18 @@ def device_name(device: torch.device) -> str:
 
 def run_scenario(spec: ScenarioSpec, *, n_jobs: int | None = None,
                  seeds: Sequence[int] | None = None,
+                 obs_dir: str | None = None,
                  device: str | torch.device = "cuda") -> list[dict]:
-    """Run a spec once per seed; one machine-readable row per run."""
+    """Run a spec once per seed; one machine-readable row per run.
+
+    When the run carries telemetry (``spec.obs`` or the ``REPRO_OBS``
+    environment value), each row additionally gets the measured
+    four-phase wall breakdown (``"phases"``: dispatch / strategy_plan /
+    flush / other seconds, partitioning ``wall_s``) and the probe
+    counters. With ``obs_dir`` set, the full telemetry JSON — and in
+    trace mode the Perfetto trace + JSONL event log — is written there
+    per run.
+    """
     dev = resolve_device(device)
     rows = []
     for seed in (spec.seeds if seeds is None else seeds):
@@ -70,7 +85,7 @@ def run_scenario(spec: ScenarioSpec, *, n_jobs: int | None = None,
         r = run_spec(spec, seed=seed, n_jobs=n_jobs, device=dev)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
-        rows.append({
+        row = {
             "scenario": spec.name, "seed": seed, "n_jobs": r.n_jobs,
             "device": device_name(dev),
             "wall_s": time.perf_counter() - t0,
@@ -80,7 +95,20 @@ def run_scenario(spec: ScenarioSpec, *, n_jobs: int | None = None,
             "makespan_s": r.makespan,
             "total_wan_gb": r.total_wan_gb,
             "net_stats": r.net_stats,
-        })
+        }
+        tel = r.telemetry
+        if tel is not None:
+            row["phases"] = tel.phase_breakdown(row["wall_s"])
+            row["counters"] = dict(sorted(tel.counters.items()))
+            if obs_dir is not None:
+                os.makedirs(obs_dir, exist_ok=True)
+                stem = os.path.join(obs_dir, f"{spec.name}_s{seed}")
+                with open(stem + ".telemetry.json", "w") as f:
+                    json.dump(tel.to_dict(), f, indent=1)
+                if tel.trace is not None:
+                    tel.save_trace(stem + ".trace.json")
+                    tel.save_events_jsonl(stem + ".events.jsonl")
+        rows.append(row)
     return rows
 
 
@@ -96,10 +124,13 @@ def run_sweep_spec(sweep: SweepSpec, *, n_jobs: int | None = None,
 
 
 def run_scenarios(names: Iterable[str], *, n_jobs: int | None = None,
-                  out_path: str | None = None,
+                  out_path: str | None = None, obs: str | None = None,
+                  obs_dir: str | None = None,
                   device: str | torch.device = "cuda") -> dict:
     """Run each named scenario *or sweep*, print one line per scenario,
-    and write the payload to ``out_path`` when given."""
+    and write the payload to ``out_path`` when given. ``obs`` overrides
+    every scenario's telemetry mode; ``obs_dir`` receives the per-run
+    telemetry/trace exports (see :func:`run_scenario`)."""
     payload: dict = {"n_jobs_override": n_jobs, "scenarios": {}, "sweeps": {}}
     for name in names:
         if name in SWEEPS:
@@ -111,7 +142,10 @@ def run_scenarios(names: Iterable[str], *, n_jobs: int | None = None,
                   f"{sw['values']} rows={len(entry['rows'])}")
             continue
         spec = get_scenario(name)
-        rows = run_scenario(spec, n_jobs=n_jobs, device=device)
+        if obs is not None:
+            spec = dataclasses.replace(spec, obs=obs)
+        rows = run_scenario(spec, n_jobs=n_jobs, obs_dir=obs_dir,
+                            device=device)
         payload["scenarios"][name] = {"spec": spec.to_dict(), "rows": rows}
         r = rows[0]
         print(f"{name:>16} device={r['device']} seeds={len(rows)} "
@@ -143,6 +177,12 @@ def main(argv: Sequence[str] | None = None) -> None:
                     help="cuda (default; needs a card) or cpu")
     ap.add_argument("--out", default=None,
                     help="also write the rows as JSON to this path")
+    ap.add_argument("--obs", default=None, choices=list(OBS_MODES),
+                    help="telemetry mode override for every scenario")
+    ap.add_argument("--obs-dir", default=None, metavar="DIR",
+                    help="write per-run telemetry JSON (and, with "
+                         "--obs trace, Perfetto trace + JSONL event log) "
+                         "into DIR")
     args = ap.parse_args(argv)
 
     if args.list:
@@ -160,7 +200,7 @@ def main(argv: Sequence[str] | None = None) -> None:
         if name not in SWEEPS:
             get_scenario(name)  # fail fast on typos before running anything
     run_scenarios(args.scenario, n_jobs=args.jobs, out_path=args.out,
-                  device=args.device)
+                  obs=args.obs, obs_dir=args.obs_dir, device=args.device)
 
 
 if __name__ == "__main__":

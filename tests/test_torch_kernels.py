@@ -15,6 +15,7 @@ plain versions on the card (``-m gpu``; ``chip_smoke.py`` does the same at
 the main path's shapes).
 """
 
+import copy
 import math
 
 import numpy as np
@@ -717,3 +718,86 @@ def test_cuda_value_score_graph_replay(mode):
         graph.replay()
         torch.cuda.synchronize()
         assert torch.equal(got, value_score_ref(*t, mode=mode)), kind
+
+
+# -- deep copies (the tie-race sanitizer's twins) ----------------------------
+
+def _started_sim(device, net="numpy"):
+    """A paper-style grid of 8 sites with 40 jobs in bursts of 8."""
+    from repro_torch.core import (GridConfig, GridSimulator, build_catalog,
+                                  build_topology, generate_jobs)
+
+    cfg = GridConfig(n_regions=2, sites_per_region=4)
+    topo = build_topology(cfg)
+    catalog = build_catalog(cfg, topo)
+    sim = GridSimulator(topo, catalog, net=net, device=device)
+    for info in catalog.files.values():
+        sim.storage.bootstrap(info.master_site, info.lfn)
+    for j, job in enumerate(generate_jobs(cfg, 40)):
+        sim.submit_job(job, at=(j // 8) * cfg.interarrival * 8)
+    return sim
+
+
+_SLOT_NAMES = ("path", "rem", "rate", "eta", "due", "active")
+
+
+@pytest.mark.parametrize("net", ["numpy", "device"])
+def test_deepcopied_engine_shares_no_storage(net):
+    """A copied engine's slot tensors and packed buffer are its own, and
+    running the copy leaves the original's as they were."""
+    sim = _started_sim("cpu", net)
+    sim.run(until=3000.0)
+    net_a = sim.network
+    twin = copy.deepcopy(sim)
+    net_b = twin.network
+    for name in _SLOT_NAMES:
+        a, b = getattr(net_a, name), getattr(net_b, name)
+        assert torch.equal(a, b), name
+        assert a.untyped_storage().data_ptr() != \
+            b.untyped_storage().data_ptr(), name
+        assert getattr(net_b._slots, name) is b, name
+    assert not np.shares_memory(net_a._inputs._f64, net_b._inputs._f64)
+    assert not np.shares_memory(net_a._inputs._i32, net_b._inputs._i32)
+    assert np.shares_memory(net_b._inputs._f64, net_b._inputs._i32)
+    before = {n: getattr(net_a, n).clone() for n in _SLOT_NAMES}
+    packed = net_a._inputs._f64.tobytes()   # uninitialised words may be NaN
+    res = twin.run()
+    assert len(res.records) == 40
+    for name in _SLOT_NAMES:
+        assert torch.equal(getattr(net_a, name), before[name]), name
+    assert net_a._inputs._f64.tobytes() == packed
+    # the original then runs to the twin's end
+    assert sim.run().records == res.records
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("net", ["numpy", "device"])
+def test_cuda_deepcopied_engine_owns_its_addresses(net):
+    """Every address a copied engine caches is its own, and running the
+    copy on the card leaves the original's slot tensors and buffers as
+    they were."""
+    sim = _started_sim(_card(), net)
+    sim.run(until=3000.0)
+    net_a = sim.network
+    twin = copy.deepcopy(sim)
+    net_b = twin.network
+
+    def addresses(n):
+        return set(n._slots.ptrs) | {n._inputs.host_ptr, n._inputs.dev_ptr,
+                                     n._inputs.word_ptr}
+
+    assert len(addresses(net_b)) == 9
+    assert not addresses(net_a) & addresses(net_b)
+    assert net_b._slots.ptrs == tuple(getattr(net_b, n).data_ptr()
+                                      for n in _SLOT_NAMES)
+    before = {n: getattr(net_a, n).clone() for n in _SLOT_NAMES}
+    packed = net_a._inputs._f64.tobytes()   # uninitialised words may be NaN
+    word = net_a._inputs.result()
+    res = twin.run()
+    torch.cuda.synchronize()
+    assert len(res.records) == 40
+    for name in _SLOT_NAMES:
+        assert torch.equal(getattr(net_a, name), before[name]), name
+    assert net_a._inputs._f64.tobytes() == packed
+    assert net_a._inputs.result() == word or np.isnan(word)
+    assert sim.run().records == res.records

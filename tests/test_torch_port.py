@@ -1,7 +1,7 @@
 """What the port carries over from the reference beside the engine:
-configuration and scenario state, the entry points, and the features
-that raise until their slice is ported (telemetry, the sanitizer, churn
-injection)."""
+configuration and scenario state, the entry points, and the features that
+ride on them (telemetry through ``obs=`` and ``REPRO_OBS``, the tie-race
+sanitizer, churn injection)."""
 
 import dataclasses
 import json
@@ -11,7 +11,7 @@ import pytest
 import repro.core as ref
 from repro_torch.core import (SCENARIOS, STRATEGIES, SWEEPS, GridConfig,
                               GridSimulator, build_catalog, build_topology,
-                              make_strategy, run_experiment)
+                              generate_jobs, make_strategy, run_experiment)
 from repro_torch.core.replica import StorageState
 from repro_torch.launch import experiments
 
@@ -46,27 +46,55 @@ def _sim(**kw):
     return GridSimulator(topo, build_catalog(cfg, topo), device="cpu", **kw)
 
 
-@pytest.mark.parametrize("kw,match", [
-    (dict(obs="report"), "telemetry"),
-    (dict(sanitize=True), "sanitizer"),
-])
-def test_unported_features_raise(kw, match):
-    with pytest.raises(NotImplementedError, match=match):
-        _sim(**kw)
+def _run(sim, n_jobs=30):
+    cfg = GridConfig(n_regions=2, sites_per_region=4)
+    for info in sim.catalog.files.values():
+        sim.storage.bootstrap(info.master_site, info.lfn)
+    for j, job in enumerate(generate_jobs(cfg, n_jobs)):
+        sim.submit_job(job, at=(j // 5) * cfg.interarrival * 5)
+    return sim.run()
+
+
+@pytest.mark.parametrize("kw", [dict(obs="report"), dict(sanitize=True)],
+                         ids=["obs", "sanitize"])
+def test_obs_and_sanitize_run(kw):
+    """Both run and leave the records of a plain run as they are."""
+    got, want = _run(_sim(**kw)), _run(_sim())
+    assert got.records == want.records
+    assert got.makespan == want.makespan
+    if "obs" in kw:
+        assert got.telemetry.mode == "report"
+        assert got.telemetry.counters["event.CPU_DONE"] == 30
+    else:
+        sim = _sim(**kw)
+        _run(sim)
+        assert sim.ties_seen > 0
 
 
 def test_repro_obs_environment_is_not_ignored(monkeypatch):
+    want = _run(_sim())
     monkeypatch.setenv("REPRO_OBS", "trace")
-    with pytest.raises(NotImplementedError, match="telemetry"):
+    got = _run(_sim())
+    assert got.telemetry is not None and got.telemetry.mode == "trace"
+    assert (got.avg_job_time, got.makespan, got.total_wan_bytes) == \
+        (want.avg_job_time, want.makespan, want.total_wan_bytes)
+    assert got.records == want.records
+    monkeypatch.setenv("REPRO_OBS", "loud")
+    with pytest.raises(ValueError, match="obs mode"):
         _sim()
     monkeypatch.setenv("REPRO_OBS", "off")
-    _sim()
+    assert _run(_sim()).telemetry is None
 
 
-def test_churn_scenarios_raise():
-    with pytest.raises(NotImplementedError, match="churn"):
-        experiments.run_spec(SCENARIOS["site_churn"], n_jobs=5,
+def test_churn_scenarios_run():
+    r = experiments.run_spec(SCENARIOS["site_churn"], n_jobs=60,
                              device="cpu")
+    want = ref.run_experiment(
+        ref.to_grid_config(ref.SCENARIOS["site_churn"]), n_jobs=60,
+        failures=ref.injections(ref.SCENARIOS["site_churn"])[0])
+    assert r.completed_jobs == want.completed_jobs == 60
+    assert (r.makespan, r.avg_inter_comms, r.total_wan_gb) == \
+        (want.makespan, want.avg_inter_comms, want.total_wan_gb)
 
 
 def test_entry_points_need_a_card_by_default(monkeypatch):

@@ -7,9 +7,9 @@ with JAX:
 
     PYTHONPATH=src python tests/test_torch_smoke.py
 
-which prints them as JSON. The tests below re-derive the three paths that
-run in seconds (``bulk_shortest``, ``economy_starved``, ``hotset_drift``)
-and hold the constants to them exactly; ``grid_500_evict`` at 2,000 jobs
+which prints them as JSON. The tests below re-derive the paths that run
+in seconds (``bulk_shortest``, ``economy_starved``, ``hotset_drift``,
+``site_churn``) and hold the constants to them exactly; ``grid_500_evict`` at 2,000 jobs
 takes about a minute on the CPU and is re-derived only by the command.
 ``avg_job_time`` is the left-to-right mean of the reference's job records
 (the port's summation; the reference's own ``sum()`` is compensated on
@@ -67,7 +67,7 @@ def reference_metrics(name: str) -> dict:
 
 
 @pytest.mark.parametrize("name", ["bulk_shortest", "economy_starved",
-                                  "hotset_drift"])
+                                  "hotset_drift", "site_churn"])
 def test_pinned_reference_metrics(name):
     assert _chip_smoke().REFERENCE[name] == reference_metrics(name)
 
@@ -77,7 +77,7 @@ def test_pinned_paths_cover_the_new_kernels():
     assert sorted(smoke.PATHS) == sorted(smoke.REFERENCE)
     assert sorted(k for ks in smoke.PATH_KERNELS.values() for k in ks) == \
         sorted(["net_rerate", "st_cost", "strategy_plan", "value_score",
-                "value_score"])
+                "value_score", "net_rerate"])
 
 
 @pytest.mark.parametrize("S,bound_us,term", [(1024, 128.4, "exponentials"),
