@@ -94,7 +94,20 @@ Phases, each raising on failure (the script then exits non-zero):
    the CPU's; ``sanitize_smoke`` on the card equal to the CPU's and to
    ``SANITIZE_REFERENCE``; a deep-copied simulator whose network engine
    caches none of the original's addresses and whose run leaves the
-   original untouched; and the cost of one empty span (``probe_cost``).
+   original untouched; and the cost of one empty span (``probe_cost``);
+11. the analysis layer on the card (``phase_analysis``): the kernel audit
+   (``repro_torch.analysis.kernel_audit``) over every registered kernel —
+   each CUDA route's peak device bytes (its input bytes plus what the call
+   allocates) within its spec's budget, the simulation kernels equal to
+   their plain versions at the spec's small and audit inputs, the model
+   kernels within tolerance, each kernel launched; ``python -m
+   repro_torch.analysis --fail-on-findings --units --conserve --tierace``
+   (``ANALYSIS_CLI``) as a subprocess on the card, exit 0 with no finding;
+   ``experiments.sweep`` of ``paper_baseline`` at ``SWEEP_JOBS`` jobs over
+   hrs, bhr and lru, each cell bit-equal to ``tests/golden_metrics.json``'s
+   ``fig4/*/100``, ``net_rerate`` launched; and ``experiments --all --jobs
+   60`` (``ALL_JOBS``) on the card and on the CPU, equal in all four
+   metrics.
 
 The launch counts of each path are reset just before it runs and read just
 after. The second-to-last line is the kernel summary as JSON; the last line
@@ -112,6 +125,7 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+T_START = time.perf_counter()
 
 SLOTS, DEPTH = 16384, 3
 DIRTY = (679, 13528)          # mean and max dirty slots per flush
@@ -172,6 +186,13 @@ SANITIZE_REFERENCE = {"ties_seen": 366, "tie_races": [
 ]}
 #: Phase 10's busy-share pass (``torch.profiler``): jobs per cell.
 TRACE_JOBS = 500
+#: Phase 11: the fig4 sweep cells (``paper_baseline`` x ``n_jobs``) held
+#: to ``tests/golden_metrics.json``, and the job count of ``--all``.
+SWEEP_JOBS, SWEEP_STRATEGIES = 100, ("hrs", "bhr", "lru")
+ALL_JOBS = 60
+#: The analysis CLI as phase 11 runs it on the card (a subprocess).
+ANALYSIS_CLI = ("-m", "repro_torch.analysis", "--fail-on-findings",
+                "--units", "--conserve", "--tierace")
 #: The serving path's kernel shapes (phase 8): gemma3-1b's attention layers
 #: (B, H, KV, hd, S) in prefill and decode, falcon-mamba-7b's scan.
 ATTN_CASES = (
@@ -1146,6 +1167,170 @@ def phase_telemetry(dev, scale_result) -> dict:
     return out
 
 
+def _analysis_cli(dev) -> dict:
+    """``python -m repro_torch.analysis`` (``ANALYSIS_CLI``) in a
+    subprocess on the card: it must exit 0 and report no finding, no
+    audit failure and every conservation check ok."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (os.path.join(ROOT, "src"), env.get("PYTHONPATH")) if p)
+    env["CUDA_VISIBLE_DEVICES"] = env.get("CUDA_VISIBLE_DEVICES",
+                                          str(dev.index))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, *ANALYSIS_CLI], cwd=ROOT,
+                          env=env, capture_output=True, text=True,
+                          timeout=900)
+    wall = time.perf_counter() - t0
+    for line in proc.stdout.splitlines():
+        print(f"[analysis] cli | {line}")
+    if proc.returncode != 0:
+        raise AssertionError(f"the analysis CLI exited {proc.returncode}:\n"
+                             f"{proc.stderr[-4000:]}")
+    want = ("simlint: 0 finding(s)", "units: 0 finding(s)",
+            "kernel audit (plain + cuda): 7 kernel(s), 0 failure(s)")
+    for w in want:
+        if w not in proc.stdout:
+            raise AssertionError(f"the analysis CLI did not report {w!r}")
+    if "FAIL" in proc.stdout:
+        raise AssertionError("the analysis CLI reported a failure")
+    print(f"[analysis] cli exit 0 in wall_s={wall!r}")
+    return {"argv": list(ANALYSIS_CLI[1:]), "wall_s": wall,
+            "returncode": proc.returncode}
+
+
+def phase_analysis(dev) -> dict:
+    """Phase 11: the kernel audit's card half over every registered
+    kernel, the analysis CLI on the card, the fig4 sweep cells against
+    the golden file and ``experiments --all`` on the card against the
+    CPU; returns the launch counts of each part and the audit's bytes."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.analysis.kernel_audit import run_kernel_audit
+    from repro_torch.core import SCENARIOS
+    from repro_torch.kernels import _cuda, registered_kernels
+    from repro_torch.launch import experiments
+
+    t_phase = time.perf_counter()
+    out: dict = {"launches": {}}
+    cpu = torch.device("cpu")
+    names = list(registered_kernels())
+    if sorted(names) != sorted(_cuda.KERNELS):
+        raise AssertionError(f"registered kernels {names} != "
+                             f"{list(_cuda.KERNELS)}")
+
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    report, failures = run_kernel_audit(device=dev)
+    audit_s = time.perf_counter() - t0
+    launches = dict(_cuda.LAUNCHES)
+    if failures:
+        raise AssertionError(f"kernel audit: {failures}")
+    audit = {}
+    for name in names:
+        cuda, plain = (report["kernels"][name]["cuda"],
+                       report["kernels"][name]["plain"])
+        if launches[name] == 0:
+            raise AssertionError(f"the audit never launched {name}")
+        audit[name] = {
+            "peak_bytes": cuda["peak_bytes"],
+            "budget_bytes": cuda["budget_bytes"],
+            "input_bytes": cuda["cases"]["audit"]["input_bytes"],
+            "alloc_bytes": cuda["cases"]["audit"]["alloc_bytes"],
+            "max_abs_err": max(c["max_abs_err"]
+                               for c in cuda["cases"].values()),
+            "parity": cuda["parity"], "host_read": cuda["host_read"],
+            "wrapper_ops": cuda["cases"]["audit"]["wrapper_ops"],
+            "plain_peak_op_bytes": plain["peak_op_bytes"],
+            "plain_max_rank": plain["max_rank"],
+            "plain_rank_and_bytes": plain["rank_and_bytes"]}
+        print(f"[analysis] audit {name}: peak_bytes={cuda['peak_bytes']} "
+              f"(inputs {audit[name]['input_bytes']} + allocated "
+              f"{audit[name]['alloc_bytes']}) budget={cuda['budget_bytes']} "
+              f"{cuda['parity']} max_abs_err={audit[name]['max_abs_err']!r}"
+              f" wrapper_ops={audit[name]['wrapper_ops']} "
+              f"host_read={cuda['host_read']!r}; plain: peak_op_bytes="
+              f"{plain['peak_op_bytes']} max_rank={plain['max_rank']} "
+              f"({plain['rank_and_bytes']})")
+    print(f"[analysis] audit of {len(names)} kernels in wall_s={audit_s!r} "
+          f"(build_s={report['build_s']!r}) launches={launches}")
+    out["audit"], out["audit_s"] = audit, audit_s
+    out["launches"]["audit"] = launches
+
+    out["cli"] = _analysis_cli(dev)
+
+    golden = json.load(open(os.path.join(ROOT, "tests",
+                                         "golden_metrics.json")))["metrics"]
+    exact = ("avg_job_time", "avg_inter_comms", "total_wan_gb", "makespan")
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    cells = experiments.sweep(SCENARIOS["paper_baseline"], axis="n_jobs",
+                              values=(SWEEP_JOBS,),
+                              strategies=SWEEP_STRATEGIES, device=dev)
+    torch.cuda.synchronize(dev)
+    sweep_s = time.perf_counter() - t0
+    launches = dict(_cuda.LAUNCHES)
+    for (n, strategy), r in cells.items():
+        g = golden[f"fig4/{strategy}/{n}"]
+        for m in exact:
+            if getattr(r, m) != g[m]:
+                raise AssertionError(f"sweep fig4/{strategy}/{n}: {m} "
+                                     f"{getattr(r, m)!r} != {g[m]!r}")
+        if r.completed_jobs != n:
+            raise AssertionError(f"sweep fig4/{strategy}/{n}: "
+                                 f"{r.completed_jobs} completed")
+        print(f"[analysis] sweep fig4/{strategy}/{n} bit-equal to the "
+              f"golden file avg_job_time={r.avg_job_time!r}")
+    if launches["net_rerate"] == 0:
+        raise AssertionError("the sweep cells never launched net_rerate")
+    print(f"[analysis] sweep of {len(cells)} cells in wall_s={sweep_s!r} "
+          f"launches={launches}")
+    out["sweep_s"] = sweep_s
+    out["launches"]["sweep fig4"] = launches
+
+    metrics = ("avg_job_time_s", "makespan_s", "avg_inter_comms",
+               "completed_jobs")
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for device in (dev, cpu):
+            path = os.path.join(tmp, f"all_{device.type}.json")
+            _cuda.reset_launches()
+            t0 = time.perf_counter()
+            experiments.main(["--all", "--jobs", str(ALL_JOBS), "--device",
+                              str(device), "--out", path])
+            torch.cuda.synchronize(dev)
+            wall = time.perf_counter() - t0
+            runs[device.type] = (json.load(open(path)), dict(_cuda.LAUNCHES),
+                                 wall)
+            print(f"[analysis] --all --jobs {ALL_JOBS} device={device} "
+                  f"wall_s={wall!r} launches={_cuda.LAUNCHES}")
+    (card, launches, card_s), (host, host_launches, host_s) = (runs["cuda"],
+                                                               runs["cpu"])
+    if sorted(card["scenarios"]) != sorted(SCENARIOS) or card["sweeps"]:
+        raise AssertionError(f"--all ran {sorted(card['scenarios'])} and "
+                             f"sweeps {sorted(card['sweeps'])}")
+    for name, entry in card["scenarios"].items():
+        rows, want = entry["rows"], host["scenarios"][name]["rows"]
+        for a, b in zip(rows, want, strict=True):
+            for m in metrics:
+                if a[m] != b[m]:
+                    raise AssertionError(f"--all {name} seed {a['seed']}: "
+                                         f"{m} card {a[m]!r} != CPU "
+                                         f"{b[m]!r}")
+    if launches["net_rerate"] == 0 or any(host_launches.values()):
+        raise AssertionError(f"--all launches: card {launches}, CPU "
+                             f"{host_launches}")
+    print(f"[analysis] --all: {len(card['scenarios'])} scenarios equal on "
+          f"the card and the CPU in {', '.join(metrics)}")
+    out["all"] = {"jobs": ALL_JOBS, "scenarios": len(card["scenarios"]),
+                  "card_s": card_s, "cpu_s": host_s}
+    out["launches"]["--all"] = launches
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"[analysis] phase 11 wall_s={out['phase_s']!r}")
+    return out
+
+
 def roofline(bytes_: float, flops: float, peak: float,
              exps: float = 0) -> tuple[float, str]:
     """The least time of one call, in ms, and the term that sets it: the
@@ -1567,6 +1752,7 @@ def main() -> int:
     model = phase_model_kernels(dev)
     served = phase_serve(dev)
     telemetry = phase_telemetry(dev, scale_result)
+    analysis = phase_analysis(dev)
     launches = {"net_rerate": golden["net_rerate"],
                 "event_engine": scale["event_engine"]}
     by_path = {name: {p: paths[p][name] for p, ks in PATH_KERNELS.items()
@@ -1679,12 +1865,20 @@ def main() -> int:
                if name == "flash_attention" else {}),
         })
     for entry in summary:
+        name = entry["name"]
         entry["phase10_launches"] = {
-            p: counts[entry["name"]]
-            for p, counts in telemetry["launches"].items()
-            if counts.get(entry["name"])}
+            p: counts[name] for p, counts in telemetry["launches"].items()
+            if counts.get(name)}
+        entry["phase11_launches"] = {
+            p: counts[name] for p, counts in analysis["launches"].items()
+            if counts.get(name)}
+        entry["audit"] = {k: analysis["audit"][name][k] for k in
+                          ("peak_bytes", "budget_bytes", "max_abs_err")}
     print("[telemetry] summary " + json.dumps(
         {k: v for k, v in telemetry.items() if k != "launches"}))
+    print("[analysis] summary " + json.dumps(
+        {k: v for k, v in analysis.items() if k != "launches"}))
+    print(f"[total] chip_smoke wall_s={time.perf_counter() - T_START!r}")
     print(smi)
     print(json.dumps({"kernels": summary}))
     print(json.dumps({"ok": True, "device": {

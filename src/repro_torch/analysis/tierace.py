@@ -1,5 +1,10 @@
-"""Tie-race helpers: the runtime half of ``repro.analysis.tierace``.
+"""Tie-race helpers: the port's ``repro.analysis.tierace``.
 
+* :func:`static_tie_key_findings` — simlint rule SL010 alone: every
+  ``heapq.heappush`` pushes a literal ``(time, seq, ...)`` tuple, so
+  same-timestamp pops are ordered by the monotonic submission counter
+  instead of whatever the heap sift happens to do. By default it runs over
+  the port's ``core/``.
 * :func:`canonical_records` — the order-free projection of a
   :class:`~repro_torch.core.simulator.SimResult` used by the determinism
   tests: per-job records sorted by job id plus the scalar totals. Two
@@ -21,11 +26,32 @@ exactly what makes that acceptable.
 
 from __future__ import annotations
 
+from pathlib import Path
+
 import torch
 
 from ..core.simulator import GridSimulator
 from ..core.workload import (GridConfig, build_catalog, build_topology,
                              generate_jobs)
+from .findings import Finding
+from .simlint import lint_source
+
+#: the event-loop package SL010 guards
+CORE_DIR = Path(__file__).resolve().parents[1] / "core"
+
+
+def static_tie_key_findings(paths: list[Path] | None = None
+                            ) -> list[Finding]:
+    """Run only the SL010 heappush-tie-key rule over ``paths`` (default:
+    every module of the port's ``core/``)."""
+    if paths is None:
+        paths = sorted(CORE_DIR.glob("*.py"))
+    out: list[Finding] = []
+    for path in paths:
+        source = path.read_text()
+        rel = path.as_posix()
+        out.extend(f for f in lint_source(source, rel) if f.rule == "SL010")
+    return out
 
 
 def canonical_records(result) -> dict:

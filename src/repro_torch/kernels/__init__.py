@@ -11,5 +11,12 @@ attention layer of the serving path) and ``selective_scan`` (every Mamba-1
 layer). Each package has ``kernel.py`` (the ctypes launch of
 ``csrc/<name>.cu``), ``ref.py`` (the plain PyTorch version) and ``ops.py``
 (the wrapper the callers use: the plain version for CPU tensors, the kernel
-for CUDA tensors). The sources are compiled at first use (``_cuda.py``).
+for CUDA tensors), and exports its ``SPEC`` (:mod:`.spec`), which the
+kernel audit finds through :func:`.registry.registered_kernels`. The
+sources are compiled at first use (``_cuda.py``).
 """
+
+from .registry import get_kernel_spec, registered_kernels
+from .spec import KernelSpec
+
+__all__ = ["KernelSpec", "get_kernel_spec", "registered_kernels"]

@@ -4,7 +4,7 @@ from __future__ import annotations
 
 from ..net_call import NetInputs, SlotArrays
 from .kernel import event_engine_kernel
-from .ref import event_engine_ref
+from .ref import event_engine_packed
 
 
 def event_engine(inputs: NetInputs, slots: SlotArrays, now: float) -> float:
@@ -14,7 +14,4 @@ def event_engine(inputs: NetInputs, slots: SlotArrays, now: float) -> float:
     (it raises rather than fall back)."""
     if slots.device.type != "cpu":
         return event_engine_kernel(inputs, slots, now)
-    idx, bw, act, staged = inputs.tensors()
-    return event_engine_ref(idx, slots.path, slots.rem, slots.rate,
-                            slots.eta, slots.due, bw, act, now, staged,
-                            active=slots.active).item()
+    return event_engine_packed(inputs, slots, now).item()

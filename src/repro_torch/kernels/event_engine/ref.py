@@ -61,3 +61,14 @@ def event_engine_ref(idx: torch.Tensor, path: torch.Tensor,
     if eta.numel() == 0:
         return torch.full((), math.inf, dtype=eta.dtype, device=eta.device)
     return eta.min()
+
+
+def event_engine_packed(inputs, slots, now: float) -> torch.Tensor:
+    """The plain version in the kernel's argument form: the packed call
+    ``inputs`` (a :class:`..net_call.NetInputs`, read on the slot arrays'
+    device) against the :class:`..net_call.SlotArrays` ``slots``; returns
+    ``min(eta)`` as a 0-d tensor on that device."""
+    idx, bw, act, staged = inputs.tensors(slots.device)
+    return event_engine_ref(idx, slots.path, slots.rem, slots.rate,
+                            slots.eta, slots.due, bw, act, now, staged,
+                            active=slots.active)

@@ -65,6 +65,13 @@ class SlotArrays:
                            (path, rem, rate, eta, due, active))
                      if self.device.type == "cuda" else None)
 
+    @property
+    def nbytes(self) -> int:
+        """Bytes of the six slot tensors."""
+        return sum(t.numel() * t.element_size() for t in
+                   (self.path, self.rem, self.rate, self.eta, self.due,
+                    self.active))
+
     def __deepcopy__(self, memo: dict) -> "SlotArrays":
         """Copies of the tensors (shared through ``memo`` with the rest of
         a deep-copied engine) and their own addresses."""
@@ -147,6 +154,12 @@ class NetInputs:
         i[o: o + n_idx] = idx
         self.n_staged, self.n_idx = n_st, n_idx
         return self
+
+    @property
+    def nbytes(self) -> int:
+        """Bytes of the packed call (what one kernel call copies up)."""
+        return (8 * (2 * self.n_links + self.n_staged)
+                + 4 * (self.n_staged * (2 + self.depth) + self.n_idx))
 
     def arrays(self) -> tuple:
         """Views of the packed buffer: ``(idx, link_bw, link_act,

@@ -4,7 +4,7 @@ from __future__ import annotations
 
 from ..net_call import NetInputs, SlotArrays
 from .kernel import net_rerate_kernel
-from .ref import net_rerate_ref
+from .ref import net_rerate_packed
 
 
 def net_rerate(inputs: NetInputs, slots: SlotArrays, now: float) -> float:
@@ -14,7 +14,4 @@ def net_rerate(inputs: NetInputs, slots: SlotArrays, now: float) -> float:
     kernel for CUDA ones (it raises rather than fall back)."""
     if slots.device.type != "cpu":
         return net_rerate_kernel(inputs, slots, now)
-    idx, bw, act, staged = inputs.tensors()
-    return net_rerate_ref(idx, slots.path, slots.rem, slots.rate, bw, act,
-                          now, staged, eta=slots.eta, due=slots.due,
-                          active=slots.active).item()
+    return net_rerate_packed(inputs, slots, now).item()

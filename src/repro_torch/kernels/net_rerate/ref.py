@@ -39,3 +39,14 @@ def net_rerate_ref(idx: torch.Tensor, path: torch.Tensor, rem: torch.Tensor,
     eta = torch.where(live, rem / torch.where(live, rate, 1.0) + now,
                       math.inf)
     return eta.min()
+
+
+def net_rerate_packed(inputs, slots, now: float) -> torch.Tensor:
+    """The plain version in the kernel's argument form: the packed call
+    ``inputs`` (a :class:`..net_call.NetInputs`, read on the slot arrays'
+    device) against the :class:`..net_call.SlotArrays` ``slots``; returns
+    the next completion time as a 0-d tensor on that device."""
+    idx, bw, act, staged = inputs.tensors(slots.device)
+    return net_rerate_ref(idx, slots.path, slots.rem, slots.rate, bw, act,
+                          now, staged, eta=slots.eta, due=slots.due,
+                          active=slots.active)

@@ -9,6 +9,11 @@ versions):
     PYTHONPATH=src python -m repro_torch.launch.experiments --list
     PYTHONPATH=src python -m repro_torch.launch.experiments \\
         --scenario grid_500_saturated --jobs 2000
+    PYTHONPATH=src python -m repro_torch.launch.experiments --all --jobs 60
+
+``--all`` runs every registered scenario (sweeps only by name);
+:func:`sweep` crosses a spec's axis with a set of replication strategies,
+the backbone of the paper's fig4-fig7 (``benchmarks/run.py``).
 
 It prints one line per run and, with ``--out PATH``, writes the rows as
 JSON in the reference's ``BENCH_scenarios.json`` layout (the port never
@@ -34,6 +39,7 @@ from repro_torch.core import (ExperimentResult, OBS_MODES, SCENARIOS, SWEEPS,
                               ScenarioSpec, SweepSpec, arrival_schedule,
                               get_scenario, get_sweep, injections,
                               run_experiment, to_grid_config)
+from repro_torch.core.scenarios import with_axis
 from repro_torch.device import resolve_device
 
 
@@ -162,6 +168,33 @@ def run_scenarios(names: Iterable[str], *, n_jobs: int | None = None,
     return payload
 
 
+# -- figure sweeps ---------------------------------------------------------
+def sweep(base: ScenarioSpec, *, axis: str, values: Sequence,
+          strategies: Sequence[str],
+          device: str | torch.device = "cuda"
+          ) -> dict[tuple, ExperimentResult]:
+    """Cross an axis with a set of replication strategies; returns
+    ``{(value, strategy): result}``.
+
+    Each cell is ``run_spec`` of the base scenario with two fields
+    replaced (:func:`repro_torch.core.scenarios.with_axis` defines the axis
+    vocabulary — every spec field plus ``wan_mbps``), on ``device``. The
+    paper's fig4-fig7 are such grids: ``axis="n_jobs"`` (fig4-fig6) or
+    ``axis="wan_mbps"`` (fig7) of ``paper_baseline`` over ``hrs``,
+    ``bhr`` and ``lru``. Named grids live in
+    :data:`repro_torch.core.SWEEPS` and run via ``--scenario NAME`` /
+    :func:`run_sweep_spec`.
+    """
+    dev = resolve_device(device)
+    out = {}
+    for v in values:
+        spec = with_axis(base, axis, v)
+        for s in strategies:
+            out[(v, s)] = run_spec(dataclasses.replace(spec, strategy=s),
+                                   device=dev)
+    return out
+
+
 def main(argv: Sequence[str] | None = None) -> None:
     ap = argparse.ArgumentParser(
         description="Run named scenarios from the repro_torch.core.scenarios "
@@ -169,6 +202,9 @@ def main(argv: Sequence[str] | None = None) -> None:
     g = ap.add_mutually_exclusive_group(required=True)
     g.add_argument("--scenario", nargs="+", metavar="NAME",
                    help="scenario or sweep names to run (see --list)")
+    g.add_argument("--all", action="store_true",
+                   help="run every registered scenario (sweeps only by "
+                        "name)")
     g.add_argument("--list", action="store_true",
                    help="list registered scenarios + sweeps and exit")
     ap.add_argument("--jobs", type=int, default=None,
@@ -196,10 +232,11 @@ def main(argv: Sequence[str] | None = None) -> None:
             print(f"{name:>16}  [sweep {sw.base} x {sw.axis}="
                   f"{list(sw.values)}]  {sw.description}")
         return
-    for name in args.scenario:
+    names = sorted(SCENARIOS) if args.all else args.scenario
+    for name in names:
         if name not in SWEEPS:
             get_scenario(name)  # fail fast on typos before running anything
-    run_scenarios(args.scenario, n_jobs=args.jobs, out_path=args.out,
+    run_scenarios(names, n_jobs=args.jobs, out_path=args.out,
                   obs=args.obs, obs_dir=args.obs_dir, device=args.device)
 
 
