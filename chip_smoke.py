@@ -6,11 +6,12 @@
 Phases, each raising on failure (the script then exits non-zero):
 
 1. the card: its name and power limit (``nvidia-smi``);
-2. build all seven CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc``
+2. build all eight CUDA libraries from ``src/repro_torch/csrc`` (one ``nvcc``
    each, in parallel); print ``ptxas``'s registers and spills of every
    entry function, and the tensor-core instructions (``HMMA``/``HGMMA``)
-   of every ``flash_attention`` kernel from ``cuobjdump -sass`` (each bf16
-   tensor-core prefill kernel must have some), and the non-coherent loads
+   of every ``flash_attention`` and ``flash_attention_bwd`` kernel from
+   ``cuobjdump -sass`` (each bf16 tensor-core prefill kernel and each dK/dV
+   and dQ kernel must have some), and the non-coherent loads
    of the network cluster kernels (none may be narrower than 64 bits: their
    int32 path rows are written and read in one launch);
 3. the two network kernels (one thread-block cluster per engine call, the
@@ -107,7 +108,30 @@ Phases, each raising on failure (the script then exits non-zero):
    hrs, bhr and lru, each cell bit-equal to ``tests/golden_metrics.json``'s
    ``fig4/*/100``, ``net_rerate`` launched; and ``experiments --all --jobs
    60`` (``ALL_JOBS``) on the card and on the CPU, equal in all four
-   metrics.
+   metrics;
+12. training (``phase_train_kernels``, ``phase_train``,
+   ``phase_supervisor``): (a) ``flash_attention_bwd`` at gemma3-1b's
+   global and local layers (B 4, H 4, KV 1, S 1,024, hd 256, window 512)
+   and gemma2-27b's heads with its softcap 50 (H 32, KV 16, hd 128, S
+   512): dq, dk and dv against the float32 plain backward, each within
+   twice the plain bf16 route's own error against it, and against the
+   plain backward on the same inputs within ``TOL``; the forward's lse
+   within ``TOL``; device and wrapper times of the forward with lse and of
+   the backward, the plain backward's, and
+   ``scaled_dot_product_attention`` forward + backward beside the bound by
+   operations (2.5 x the forward's); the port's forward + backward and
+   the library's, as device time by the profiler, with the library's
+   backend read from its kernels' names. (b) gemma3-1b at full width and depth
+   through ``repro_torch.launch.train``'s functions, batch 4 x 1,024: the
+   first step's loss and every gradient leaf on the kernels against
+   ``backend="plain"`` on the card within ``TRAIN_TOL`` (the plain bf16
+   route's own distance from float32 printed beside), then ``TRAIN_STEPS``
+   steps on a repeated batch under the supervisor (no checkpoint): the
+   loss must fall; step ms, tokens/s, peak device memory and the flash
+   forward (twice per layer: remat recomputes it) and backward launches
+   per step. (c) the supervisor at the reduced gemma3-1b on the card:
+   a checkpoint every 4 steps, a failure at step 6, 24 steps; one restart,
+   the restored state bit-equal to what was saved.
 
 The launch counts of each path are reset just before it runs and read just
 after. The second-to-last line is the kernel summary as JSON; the last line
@@ -118,6 +142,7 @@ of the repository beside it, the script exits non-zero and prints neither.
 from __future__ import annotations
 
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -220,6 +245,21 @@ SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW = 4, 1024, 16
 #: kernel route against plain route with float32 weights, at full depth
 #: (the bf16 runs are held to twice the bf16 noise measured in the run)
 SERVE_TOL_F32 = 1e-3
+#: Phase 12 (a): the backward's shapes: name, B, H, KV, S, hd, window,
+#: softcap (gemma3-1b's global and local layers, gemma2-27b's heads)
+BWD_CASES = (
+    ("gemma3-1b global", 4, 4, 1, 1024, 256, None, None),
+    ("gemma3-1b local", 4, 4, 1, 1024, 256, 512, None),
+    ("gemma2-27b softcap", 4, 32, 16, 512, 128, None, 50.0),
+)
+#: Phase 12 (b): batch, sequence and steps of the full-width training run;
+#: the relative tolerance of the kernel route's first-step loss and of
+#: each gradient leaf (relative L2 distance) against the plain route, both
+#: in bf16: a wrong mask, layout or gradient moves a leaf by O(1), the bf16
+#: rounding of 26 layers by about 1e-2 (the plain route's own distance from
+#: float32 is printed beside)
+TRAIN_B, TRAIN_S, TRAIN_STEPS = 4, 1024, 8
+TRAIN_TOL = 5e-2
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
 FP64_FLOPS = 34e12            # H100 SXM float64, outside the tensor cores
 BF16_FLOPS = 989e12           # H100 SXM bf16, dense tensor cores
@@ -1186,8 +1226,11 @@ def _analysis_cli(dev) -> dict:
     if proc.returncode != 0:
         raise AssertionError(f"the analysis CLI exited {proc.returncode}:\n"
                              f"{proc.stderr[-4000:]}")
+    from repro_torch.kernels import _cuda
+
     want = ("simlint: 0 finding(s)", "units: 0 finding(s)",
-            "kernel audit (plain + cuda): 7 kernel(s), 0 failure(s)")
+            f"kernel audit (plain + cuda): {len(_cuda.KERNELS)} kernel(s), "
+            "0 failure(s)")
     for w in want:
         if w not in proc.stdout:
             raise AssertionError(f"the analysis CLI did not report {w!r}")
@@ -1626,6 +1669,431 @@ def phase_serve(dev) -> dict:
     return out
 
 
+def device_split(fn, calls: int = 20) -> tuple[dict, float]:
+    """``calls`` back-to-back ``fn()`` calls under ``torch.profiler``
+    after a warm-up: each device operation's name with ``(total µs,
+    launches)`` as the trace recorded them (it may drop some, so divide by
+    the launches it saw, not by ``calls``), and the wall ms per call (host
+    clock, ended by a sync)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    by_name: dict = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            us, n = by_name.get(e.key, (0.0, 0))
+            by_name[e.key] = (us + e.self_device_time_total, n + e.count)
+    return by_name, 1e3 * wall / calls
+
+
+#: device operations of a training step, by family (first match wins)
+STEP_FAMILIES = (
+    ("flash_attention_bwd", ("dkdv_kernel", "dq_kernel", "delta_kernel")),
+    ("flash_attention", ("flash_kernel",)),
+    ("gemm", ("gemm", "Gemm", "nvjet", "sm90_", "cutlass", "xmma",
+              "cublas")),
+    ("copy", ("Memcpy", "Memset")),
+)
+
+
+def step_families(by_name: dict) -> dict:
+    """Device µs by family (``STEP_FAMILIES``; the rest is elementwise,
+    reductions and indexing) of one profiled call."""
+    out = {name: 0.0 for name, _ in STEP_FAMILIES}
+    out["other"] = 0.0
+    for key, (us, _) in by_name.items():
+        fam = next((name for name, pats in STEP_FAMILIES
+                    if any(p in key for p in pats)), "other")
+        out[fam] += us
+    return out
+
+
+def sdpa_backend(by_name: dict) -> str:
+    """Which ``scaled_dot_product_attention`` backend ran, read from the
+    names of the device operations its calls launched."""
+    names = " ".join(by_name)
+    for backend, pats in (("cudnn", ("cudnn",)),
+                          ("flash", ("pytorch_flash", "flash_fwd",
+                                     "flash_bwd")),
+                          ("efficient", ("fmha", "cutlassF", "cutlassB",
+                                         "mem_efficient")),
+                          ("math", ("softmax", "SoftMax"))):
+        if any(p in names for p in pats):
+            return backend
+    return "unknown"
+
+
+def split_ms(by_name: dict, calls: int) -> float:
+    """Device ms of one call: every device operation the trace of
+    ``calls`` calls recorded, summed and divided by ``calls`` (a lower
+    bound if the trace dropped some)."""
+    return sum(us for us, _ in by_name.values()) / 1e3 / calls
+
+
+def _rel_l2(a, b) -> float:
+    """||a - b|| / ||b|| in float32."""
+    a, b = a.float(), b.float()
+    return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+
+def phase_train_kernels(dev) -> dict:
+    """Phase 12 (a): the flash attention backward at the training path's
+    shapes (``BWD_CASES``) against the float32 plain backward, within
+    twice the plain bf16 route's own error against it; times of the
+    forward with lse and of the backward beside the bound and
+    ``scaled_dot_product_attention``'s forward + backward."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import (attention_mask,
+                                                     flash_attention_kernel,
+                                                     flash_attention_lse_ref)
+    from repro_torch.kernels.flash_attention_bwd import (
+        flash_attention_bwd_kernel, flash_attention_bwd_ref)
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(17)
+    out = []
+    for name, B, H, KV, S, hd, window, cap in BWD_CASES:
+        # the model's layout: (B, S, heads, hd) storage seen as (B, heads,
+        # S, hd)
+        t = lambda n: torch.tensor(  # noqa: E731
+            rng.standard_normal((B, S, n, hd), np.float32),
+            device=dev).bfloat16().transpose(1, 2)
+        q, k, v, do = t(H), t(KV), t(KV), t(H)
+        kw = dict(causal=True, window=window, softcap=cap)
+        f32 = [x.float() for x in (q, k, v, do)]
+        o32, lse32 = flash_attention_lse_ref(*f32[:3], **kw)
+        want = flash_attention_bwd_ref(*f32[:3], o32, lse32, f32[3], **kw)
+        ob, lseb = flash_attention_lse_ref(q, k, v, **kw)
+        plain = flash_attention_bwd_ref(q, k, v, ob, lseb, do, **kw)
+        ok_, lse_k = flash_attention_kernel(q, k, v, with_lse=True, **kw)
+        got = flash_attention_bwd_kernel(q, k, v, ok_, lse_k, do, **kw)
+        # the plain version on the very same inputs (it rounds P and dS to
+        # bf16 where the kernel does): within the bf16 tolerance
+        same = flash_attention_bwd_ref(q, k, v, ok_, lse_k, do, **kw)
+        same_err = max(_close_or_raise(f"flash_attention_bwd {name} {label}",
+                                       g, p_, TOL["bfloat16"])
+                       for label, g, p_ in zip(("dq", "dk", "dv"), got, same))
+        del same
+        torch.cuda.synchronize(dev)
+        lse_err = float((lse_k - lse32).abs().max())
+        if not lse_err <= TOL["bfloat16"]:
+            raise AssertionError(f"flash_attention lse {name}: {lse_err} > "
+                                 f"{TOL['bfloat16']}")
+        errors, tols = {}, {}
+        for label, g, p, w in zip(("dq", "dk", "dv"), got, plain, want):
+            noise = float((p.float() - w).abs().max())
+            err = float((g.float() - w).abs().max())
+            errors[label], tols[label] = err, 2 * noise
+            if not err <= 2 * noise:
+                raise AssertionError(
+                    f"flash_attention_bwd {name} {label}: max abs err "
+                    f"{err} > 2 x the plain bf16 route's {noise}")
+        del f32, o32, want, plain, got
+        mask = attention_mask(S, S, causal=True, window=window, q_offset=0,
+                              kv_len=None, device=dev)
+        pairs = int(mask.sum())
+        flops = 2.5 * 4 * B * H * pairs * hd
+        # q, o, do, dq and k, v, dk, dv in bf16 once each; lse in float32
+        bytes_ = 2 * 4 * (B * H * S * hd + B * KV * S * hd) + 4 * B * H * S
+        bound_ms, term = roofline(bytes_, flops, BF16_FLOPS)
+        fwd = lambda: flash_attention_kernel(  # noqa: E731
+            q, k, v, with_lse=True, **kw)
+        kern = lambda: flash_attention_bwd_kernel(  # noqa: E731
+            q, k, v, ok_, lse_k, do, **kw)
+        plain_fn = lambda: flash_attention_bwd_ref(  # noqa: E731
+            q, k, v, ob, lseb, do, **kw)
+        library = None
+        if cap is None:     # no PyTorch call takes a softcap
+            leaves = [x.contiguous().requires_grad_() for x in (q, k, v)]
+            doc = do.contiguous()
+            sdpa_kw = (dict(is_causal=True) if window is None
+                       else dict(attn_mask=mask))
+
+            def library():
+                o = F.scaled_dot_product_attention(*leaves, enable_gqa=True,
+                                                   **sdpa_kw)
+                torch.autograd.grad(o, leaves, doc)
+        split, _ = device_split(kern)
+        # forward + backward on both sides timed the same way: the device
+        # operations of 20 calls under the profiler
+        both = lambda: (fwd(), kern())  # noqa: E731
+        fwd_bwd_ms = split_ms(device_split(both)[0], 20)
+        lib_split = None if library is None else device_split(library)[0]
+        r = dict(shape=f"flash_attention_bwd {name} B={B} H={H} KV={KV} "
+                       f"S={S} hd={hd} window={window} softcap={cap}",
+                 # µs a launch of each of the three kernels, and the
+                 # launches the trace recorded of the 20 calls
+                 split_us={k.replace("(anonymous namespace)::", "")
+                           .split("(")[0].split("<")[0]: (us / n, n)
+                           for k, (us, n) in split.items()},
+                 errors=errors, tolerances=tols,
+                 max_abs_err=max(errors.values()), lse_err=lse_err,
+                 same_inputs_err=same_err,
+                 lse_ms=device_ms(fwd), ms=device_ms(kern),
+                 plain_ms=device_ms(plain_fn, rounds=3, calls=2),
+                 wrapper_ms=wrapper_ms(kern),
+                 plain_wrapper_ms=wrapper_ms(plain_fn, rounds=3, calls=2,
+                                             warmup=1),
+                 fwd_bwd_ms=fwd_bwd_ms,
+                 library_ms=None if library is None else split_ms(lib_split,
+                                                                  20),
+                 library_wrapper_ms=None if library is None else wrapper_ms(
+                     library, rounds=5, calls=10, warmup=3),
+                 library_backend=None if library is None
+                 else sdpa_backend(lib_split),
+                 library_top=None if library is None else [
+                     (k[:70], us / 20) for k, (us, _) in sorted(
+                         lib_split.items(), key=lambda kv: -kv[1][0])[:4]],
+                 bytes=bytes_, flops=flops, bound_ms=bound_ms, bound_by=term)
+        lib = ("none" if library is None
+               else f"{1e3 * r['library_ms']!r}us device ("
+                    f"{r['library_backend']} backend; heaviest, us a call: "
+                    f"{r['library_top']}), "
+                    f"{1e3 * r['library_wrapper_ms']!r}us eager")
+        print(f"[train-kernels] {r['shape']}: errors vs float32 {errors} "
+              f"(tol 2 x plain bf16 route's: {tols}) lse_err={lse_err!r}; "
+              f"against the plain version on the same inputs: max abs err "
+              f"{same_err!r} (within atol = rtol = {TOL['bfloat16']}); "
+              f"device: forward+lse={1e3 * r['lse_ms']!r}us "
+              f"backward={1e3 * r['ms']!r}us plain backward="
+              f"{1e3 * r['plain_ms']!r}us; through the wrapper: backward="
+              f"{1e3 * r['wrapper_ms']!r}us plain={1e3 * r['plain_wrapper_ms']!r}"
+              f"us; device by the profiler (20 calls): forward+lse+backward="
+              f"{1e3 * fwd_bwd_ms!r}us, sdpa fwd+bwd={lib}; flops={flops!r} bytes={bytes_} "
+              f"bound={1e3 * bound_ms!r}us ({term}); by kernel (profiler: "
+              f"us a launch, launches recorded of 20 calls): "
+              f"{r['split_us']}")
+        out.append(r)
+        del q, k, v, do, ob, lseb, ok_, lse_k, mask
+        torch.cuda.empty_cache()
+    print(f"[train-kernels] phase 12 (a) wall_s="
+          f"{time.perf_counter() - t_phase!r}")
+    return {"flash_attention_bwd": out}
+
+
+def phase_train(dev) -> dict:
+    """Phase 12 (b): gemma3-1b at full width and depth through
+    ``repro_torch.launch.train``'s functions: the first step on the
+    kernels against ``backend="plain"``, then ``TRAIN_STEPS`` steps on a
+    repeated batch under the supervisor; returns step times, memory and
+    the launches of the steps."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.checkpoint.ckpt import _leaf_paths
+    from repro_torch.configs import get_config
+    from repro_torch.fault.failures import TrainingSupervisor
+    from repro_torch.kernels import _cuda
+    from repro_torch.launch import train as launch_train
+    from repro_torch.train.optimizer import tree_leaves, tree_map
+    from repro_torch.train.train_step import grad_fn
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    cfg = get_config("gemma3-1b")
+    t0 = time.perf_counter()
+    run = launch_train.build(cfg, batch=TRAIN_B, seq=TRAIN_S,
+                             steps=TRAIN_STEPS, device=dev)
+    torch.cuda.synchronize(dev)
+    init_s = time.perf_counter() - t0
+    batch, _ = run["loader"].next_batch()
+    b = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+    params = run.pop("params")
+
+    # the first step's loss and gradients: kernels, plain, plain in float32
+    _cuda.reset_launches()
+    lk, _, gk = grad_fn(cfg, run["tcfg"], params, b, backend="auto")
+    hold_launches = dict(_cuda.LAUNCHES)
+    lp, _, gp = grad_fn(cfg, run["tcfg"], params, b, backend="plain")
+    if hold_launches["flash_attention_bwd"] != cfg.n_layers or any(
+            _cuda.LAUNCHES[n] != c for n, c in hold_launches.items()):
+        raise AssertionError(f"first step launches {hold_launches}, plain "
+                             f"route {_cuda.LAUNCHES}")
+    p32 = tree_map(lambda t: t.float(), params)
+    l32, _, g32 = grad_fn(cfg, run["tcfg"], p32, b, backend="plain")
+    del p32
+    names = ["/".join(path) for path, _ in _leaf_paths(gp)]
+    err = [_rel_l2(a, c) for a, c in zip(tree_leaves(gk), tree_leaves(gp))]
+    noise = [_rel_l2(a, c) for a, c in zip(tree_leaves(gp), tree_leaves(g32))]
+    loss_err = abs(float(lk) - float(lp)) / abs(float(lp))
+    worst = max(range(len(err)), key=err.__getitem__)
+    print(f"[train] gemma3-1b full width params="
+          f"{sum(t.numel() for t in tree_leaves(params))} init_s={init_s!r} "
+          f"first step: loss kernels={float(lk)!r} plain={float(lp)!r} "
+          f"plain f32={float(l32)!r} rel err={loss_err!r}; gradient leaves "
+          f"{len(err)}: max rel L2 kernels vs plain={err[worst]!r} "
+          f"({names[worst]}), median={statistics.median(err)!r}; plain bf16 "
+          f"vs f32: max={max(noise)!r} median={statistics.median(noise)!r} "
+          f"(tol {TRAIN_TOL})")
+    if not (loss_err <= TRAIN_TOL and err[worst] <= TRAIN_TOL):
+        raise AssertionError(f"first step: loss rel err {loss_err}, leaf "
+                             f"{names[worst]} rel L2 {err[worst]} > "
+                             f"{TRAIN_TOL}")
+    del gk, gp, g32
+    torch.cuda.empty_cache()
+
+    # TRAIN_STEPS steps on the repeated batch, no checkpoint written
+    step_fn = launch_train.make_step_fn(run["train_step"],
+                                        lambda: (batch, None), dev)
+    times = []
+
+    def timed(state, i):
+        t1 = time.perf_counter()
+        result = step_fn(state, i)
+        torch.cuda.synchronize(dev)
+        times.append(time.perf_counter() - t1)
+        return result
+
+    state = (params, run.pop("opt"))
+    del params
+    with tempfile.TemporaryDirectory() as tmp:
+        sup = TrainingSupervisor(timed, tmp, ckpt_every=TRAIN_STEPS + 1)
+        torch.cuda.reset_peak_memory_stats(dev)
+        _cuda.reset_launches()                     # the main path
+        state, hist = sup.run(state, TRAIN_STEPS)
+        launches = dict(_cuda.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated(dev)
+        written = os.listdir(tmp)
+    losses = [h["loss"] for h in hist]
+    step_s = statistics.median(times)
+    fwd, bwd = launches["flash_attention"], launches["flash_attention_bwd"]
+    others = {n: c for n, c in launches.items()
+              if c and n not in ("flash_attention", "flash_attention_bwd")}
+    print(f"[train] {TRAIN_STEPS} steps B={TRAIN_B} S={TRAIN_S}: losses "
+          f"{losses} step_ms median={1e3 * step_s!r} (all "
+          f"{[1e3 * x for x in times]}) tokens_per_s="
+          f"{TRAIN_B * TRAIN_S / step_s!r} max_memory_allocated={peak} "
+          f"flash_attention launches per step={fwd / TRAIN_STEPS!r} "
+          f"flash_attention_bwd per step={bwd / TRAIN_STEPS!r}")
+    if not losses[-1] < losses[0] or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"the loss did not fall: {losses}")
+    if (fwd != 2 * cfg.n_layers * TRAIN_STEPS
+            or bwd != cfg.n_layers * TRAIN_STEPS or others or written):
+        raise AssertionError(f"training launches {launches} (want "
+                             f"flash_attention 2 x {cfg.n_layers} and "
+                             f"flash_attention_bwd {cfg.n_layers} per step, "
+                             f"nothing else), checkpoints {written}")
+    # one more step under torch.profiler: device time by family
+    carry = [state]
+
+    def one_step():
+        carry[0] = step_fn(carry[0], TRAIN_STEPS)[0]
+
+    by_name, prof_ms = device_split(one_step, calls=1)
+    families = step_families(by_name)
+    busy = sum(families.values()) / 1e3
+    top = sorted(((k, us) for k, (us, _) in by_name.items()),
+                 key=lambda kv: -kv[1])[:12]
+    # the profiler slows the host, so the busy share is taken against the
+    # median step without it
+    share = busy / (1e3 * step_s)
+    print(f"[train] profiled step: wall_ms={prof_ms!r} device busy ms="
+          f"{busy!r}, {100 * share!r}% of the median unprofiled step "
+          f"({1e3 * step_s!r} ms); by family (ms): "
+          f"{ {k: v / 1e3 for k, v in families.items()} }; heaviest "
+          f"device operations (ms): "
+          f"{ {k[:60]: v / 1e3 for k, v in top} }")
+    del state, carry
+    torch.cuda.empty_cache()
+    wall = time.perf_counter() - t_phase
+    print(f"[train] phase 12 (b) wall_s={wall!r}")
+    return {"launches": launches, "losses": losses, "step_ms": 1e3 * step_s,
+            "step_ms_all": [1e3 * x for x in times],
+            "tokens_per_s": TRAIN_B * TRAIN_S / step_s, "peak_bytes": peak,
+            "first_step": {"loss_rel_err": loss_err,
+                           "max_leaf_rel_l2": err[worst],
+                           "median_leaf_rel_l2": statistics.median(err),
+                           "plain_bf16_vs_f32_max": max(noise),
+                           "plain_bf16_vs_f32_median":
+                               statistics.median(noise),
+                           "tol": TRAIN_TOL},
+            "profiled_step": {"wall_ms": prof_ms, "busy_ms": busy,
+                              "busy_share_of_median_step": share,
+                              "family_ms": {k: v / 1e3
+                                            for k, v in families.items()},
+                              "top_ms": {k[:60]: v / 1e3 for k, v in top}},
+            "init_s": init_s, "phase_s": wall}
+
+
+def phase_supervisor(dev) -> dict:
+    """Phase 12 (c): the reduced gemma3-1b on the card under the
+    supervisor, a checkpoint every 4 steps and a failure at step 6 (the
+    reference's ``test_training_with_failures_recovers``): one restart,
+    the loss below its start, the step-4 checkpoint restoring bit-equal
+    to the state it saved."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.checkpoint.ckpt import restore_checkpoint
+    from repro_torch.configs import get_config
+    from repro_torch.fault.failures import FailurePlan, TrainingSupervisor
+    from repro_torch.kernels import _cuda
+    from repro_torch.launch import train as launch_train
+    from repro_torch.train.optimizer import OptimizerConfig, tree_leaves
+    from repro_torch.train.train_step import TrainConfig, make_train_step
+
+    t_phase = time.perf_counter()
+    cfg = get_config("gemma3-1b").reduced()
+    run = launch_train.build(cfg, batch=4, seq=64, steps=60, device=dev)
+    step = make_train_step(cfg, TrainConfig(opt=OptimizerConfig(
+        peak_lr=2e-3, warmup_steps=2, total_steps=60)))
+    step_fn = launch_train.make_step_fn(step, run["loader"].next_batch, dev)
+    saved = {}
+
+    def keep(state, i):
+        result = step_fn(state, i)
+        if i + 1 == 4 and 4 not in saved:
+            saved[4] = [t.detach().cpu().clone()
+                        for t in tree_leaves(result[0])]
+        return result
+
+    bits = lambda t: (t.view(torch.int16)  # noqa: E731
+                      if t.dtype == torch.bfloat16 else t)
+    with tempfile.TemporaryDirectory() as tmp:
+        sup = TrainingSupervisor(keep, tmp, ckpt_every=4,
+                                 plan=FailurePlan(fail_at_steps=(6,)))
+        _cuda.reset_launches()
+        state, hist = sup.run((run["params"], run["opt"]), 24)
+        launches = dict(_cuda.LAUNCHES)
+        restored, _ = restore_checkpoint(tmp, 4, like=state, device=dev)
+    same = [a.device == dev and a.dtype == b.dtype
+            and torch.equal(bits(a.cpu()), bits(b))
+            for a, b in zip(tree_leaves(restored), saved[4])]
+    losses = [h["loss"] for h in hist]
+    st = sup.stats
+    print(f"[supervisor] reduced gemma3-1b on the card: restarts="
+          f"{st.restarts} steps_run={st.steps_run} steps_wasted="
+          f"{st.steps_wasted} first loss={losses[0]!r} last 6 min="
+          f"{min(losses[-6:])!r}; step-4 checkpoint bit-equal: "
+          f"{sum(same)}/{len(same)} leaves; launches={launches}")
+    if (st.restarts != 1 or len(hist) < 24 or not all(same)
+            or not min(losses[-6:]) < losses[0] - 0.15
+            or not launches["flash_attention_bwd"]):
+        raise AssertionError(f"supervisor: {st}, losses {losses}, "
+                             f"bit-equal {sum(same)}/{len(same)}, "
+                             f"launches {launches}")
+    return {"restarts": st.restarts, "steps_run": st.steps_run,
+            "steps_wasted": st.steps_wasted, "losses": losses,
+            "restored_bit_equal_leaves": sum(same), "leaves": len(same),
+            "launches": launches, "phase_s": time.perf_counter() - t_phase}
+
+
 def ptxas_report(log: str) -> list:
     """``(kernel, "N registers, S bytes spill stores, L bytes spill
     loads")`` for each entry function of one ``nvcc -Xptxas -v`` log."""
@@ -1688,9 +2156,10 @@ def sass_counts(lib_name: str, pattern: str) -> dict:
 
 def phase_sass() -> dict:
     """Read the SASS of two kinds of kernel. The tensor-core instructions
-    (``HMMA``, ``HGMMA``) of each ``flash_attention`` entry function:
-    raises unless each tensor-core prefill kernel (one per head dim) has
-    some; the other routes run on the CUDA cores. The non-coherent
+    (``HMMA``, ``HGMMA``) of each ``flash_attention`` and
+    ``flash_attention_bwd`` entry function: raises unless each
+    tensor-core prefill kernel and each dK/dV and dQ kernel (one per head
+    dim) has some; the other routes run on the CUDA cores. The non-coherent
     read-only loads (``LDG...CONSTANT``) narrower than 64 bits in the
     network cluster kernels: raises on any, since their int32 reads (path
     rows, index lists) may see rows the same launch wrote."""
@@ -1703,6 +2172,13 @@ def phase_sass() -> dict:
     if len(mma) != len(HEAD_DIMS) or not all(mma.values()):
         raise AssertionError(f"tensor-core prefill kernels without HMMA: "
                              f"{mma}")
+    bwd = sass_counts("flash_attention_bwd", r"\bH(G)?MMA\b")
+    for fn, n in sorted(bwd.items()):
+        print(f"[sass] flash_attention_bwd: {fn}: {n} HMMA/HGMMA "
+              "instructions")
+    mma = {fn: n for fn, n in bwd.items() if "delta_kernel" not in fn}
+    if len(mma) != 2 * len(HEAD_DIMS) or not all(mma.values()):
+        raise AssertionError(f"backward kernels without HMMA: {mma}")
     narrow_nc = {}
     for lib in ("net_rerate", "event_engine"):
         nc = sass_counts(lib, r"\bLDG\S*\.CONSTANT\b")
@@ -1715,6 +2191,7 @@ def phase_sass() -> dict:
         raise AssertionError(f"network kernels with narrow non-coherent "
                              f"loads: {narrow_nc}")
     return {"tensor_core_instructions": counts,
+            "bwd_tensor_core_instructions": bwd,
             "narrow_noncoherent_loads": narrow_nc}
 
 
@@ -1753,6 +2230,9 @@ def main() -> int:
     served = phase_serve(dev)
     telemetry = phase_telemetry(dev, scale_result)
     analysis = phase_analysis(dev)
+    train_kernels = phase_train_kernels(dev)
+    train = phase_train(dev)
+    supervised = phase_supervisor(dev)
     launches = {"net_rerate": golden["net_rerate"],
                 "event_engine": scale["event_engine"]}
     by_path = {name: {p: paths[p][name] for p, ks in PATH_KERNELS.items()
@@ -1864,6 +2344,50 @@ def main() -> int:
                 "tensor_core_instructions": sass["tensor_core_instructions"]}
                if name == "flash_attention" else {}),
         })
+    # the backward: the gemma3-1b global layer is its path's main shape;
+    # its launches are the full-width training run's (phase 12 (b))
+    rows = train_kernels["flash_attention_bwd"]
+    row = rows[0]
+    summary.append({
+        "name": "flash_attention_bwd", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:29",
+        "replaces_note": (
+            "the TPU kernel has no backward; the reference differentiates "
+            "its jnp stand-in attention_blockwise "
+            "(src/repro/models/attention.py:62) with jax.value_and_grad"),
+        "launches": train["launches"]["flash_attention_bwd"],
+        "max_abs_err": max(r["max_abs_err"] for r in rows),
+        "ms": row["ms"], "plain_ms": row["plain_ms"],
+        "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+        "library_ms": row["library_ms"],
+        "library": ("scaled_dot_product_attention forward + backward, "
+                    "device time by the profiler; compare fwd_bwd_ms"),
+        "library_backend": row["library_backend"],
+        "library_wrapper_ms": row["library_wrapper_ms"],
+        "fwd_bwd_ms": row["fwd_bwd_ms"],
+        "wrapper_ms": row["wrapper_ms"],
+        "plain_wrapper_ms": row["plain_wrapper_ms"], "shape": row["shape"],
+        "errors": row["errors"], "tolerances": row["tolerances"],
+        "same_inputs_err": row["same_inputs_err"],
+        "other_shapes": [{k: r[k] for k in
+                          ("shape", "max_abs_err", "ms", "plain_ms",
+                           "wrapper_ms", "fwd_bwd_ms", "library_ms",
+                           "library_backend", "library_wrapper_ms",
+                           "bound_ms", "bound_by", "errors", "tolerances",
+                           "same_inputs_err")}
+                         for r in rows[1:]],
+        "training": {k: v for k, v in train.items() if k != "launches"},
+        "supervisor": supervised,
+        "ptxas": dict(ptxas.get("flash_attention_bwd", [])),
+        "tensor_core_instructions": sass["bwd_tensor_core_instructions"],
+    })
+    for entry in summary:
+        if entry["name"] == "flash_attention":
+            entry["lse_forward"] = [{k: r[k] for k in ("shape", "lse_ms",
+                                                       "lse_err")}
+                                    for r in rows]
+            entry["launches_training"] = train["launches"]["flash_attention"]
     for entry in summary:
         name = entry["name"]
         entry["phase10_launches"] = {

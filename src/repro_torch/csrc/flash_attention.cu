@@ -1,6 +1,8 @@
 // Flash attention for the serving path: every attention layer of gemma3-1b,
 // in prefill (a 1,024-token prompt) and in decode (one query against the
-// cache).
+// cache). On the training path the two prefill routes also write each row's
+// log-sum-exp (lse, float32, natural log), which the backward
+// (flash_attention_bwd.cu) reads to rebuild P without a second softmax.
 //
 // Replaces the Pallas TPU kernel _flash_kernel
 // (src/repro/kernels/flash_attention/kernel.py:29, pallas_call at :113). That
@@ -79,10 +81,9 @@
 
 #include <cstdint>
 
-namespace {
+#include "mma_bf16.cuh"
 
-constexpr float kNegInf = -1e30f;
-constexpr float kLog2e = 1.4426950408889634f;
+namespace {
 
 struct Params {
   const void* q;
@@ -90,6 +91,7 @@ struct Params {
   const void* v;
   void* o;
   float* scratch;       // decode: (B, H, Sq, n_split, hd + 2) float32
+  float* lse;           // prefill, when not null: (B, H, Sq) float32, ln units
   int64_t qs[3], ks[3], vs[3], os[3];  // element strides: batch, head, pos
   int batch;
   int heads;            // H
@@ -147,39 +149,6 @@ __device__ inline float to_float(__nv_bfloat16 x) { return __bfloat162float(x); 
 __device__ inline void store(float* p, float x) { *p = x; }
 __device__ inline void store(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);
-}
-
-__device__ inline float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ inline float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-__device__ inline uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16-byte asynchronous copy to shared memory; !valid fills 16 zero bytes
-// (src is then not read, but must still be a device address).
-__device__ inline void cp_async16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-
-__device__ inline void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ inline void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // The keys some row of queries [q0, last_q] may see: [lo, hi).
@@ -376,6 +345,8 @@ __global__ void __launch_bounds__(kThreads) flash_kernel(Params p) {
       const int d = lane + 32 * i;
       if (d < HD) store(orow + d, acc[rr][i] / denom);
     }
+    if (p.lse != nullptr && lane == 0)
+      p.lse[(b * p.heads + h) * p.sq + qi] = m[rr] + logf(denom);
   }
 }
 
@@ -395,40 +366,6 @@ struct MmaTile {
       sizeof(__nv_bfloat16) * kLd * (kMmaRows + 4 * kBlockN);
 };
 
-__device__ inline void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-__device__ inline void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-// d += a (16 x 16, row) . b (16 x 8, col); bf16 in, float32 accumulate
-__device__ inline void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ inline uint32_t bf16x2_bits(__nv_bfloat162 x) {
-  return *reinterpret_cast<uint32_t*>(&x);
-}
-
-// Fragment layouts (PTX ISA, mma.m16n8k16): lane = 4 g + t. The S and O
-// accumulators of an n tile hold (row g, cols 2t, 2t + 1) in [0], [1] and
-// (row g + 8, same cols) in [2], [3]. The A operand holds (row g, k 2t..),
-// (row g + 8, k 2t..), (row g, k 2t + 8..), (row g + 8, k 2t + 8..); B
-// holds (k 2t.., col g), (k 2t + 8.., col g).
 template <int HD>
 __global__ void __launch_bounds__(kMmaThreads, 2) flash_kernel_mma(Params p) {
   using T = __nv_bfloat16;
@@ -634,6 +571,9 @@ __global__ void __launch_bounds__(kMmaThreads, 2) flash_kernel_mma(Params p) {
     const int64_t h = h0 + r / p.block_q;
     T* orow = o + b * p.os[0] + h * p.os[1] + qi * p.os[2];
     const float denom = fmaxf(l[half], 1e-30f);
+    // m is in log2 units (scores times kLog2e): lse = ln 2 (m + log2 l)
+    if (p.lse != nullptr && tq == 0)
+      p.lse[(b * p.heads + h) * p.sq + qi] = (m[half] + log2f(denom)) * kLn2;
 #pragma unroll
     for (int j = 0; j < kDTiles; ++j)
       *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j + 2 * tq) =
@@ -869,17 +809,6 @@ __global__ void __launch_bounds__(kMergeThreads) flash_kernel_merge(Params p,
 // ---------------------------------------------------------------------------
 // Launches
 
-// Dynamic shared memory above 48 KB needs the attribute, set once per kernel.
-template <typename Kernel>
-int allow_smem(Kernel kernel, size_t bytes, bool* configured) {
-  if (*configured) return 0;
-  const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err != cudaSuccess) return (int)err;
-  *configured = true;
-  return 0;
-}
-
 template <int HD>
 int launch_simt(const Params& p, cudaStream_t st) {
   constexpr size_t bytes = smem_bytes<HD>();
@@ -972,10 +901,13 @@ void tile_rows(Params* p, int64_t Sq, int rows) {
 // is 0 (SIMT prefill, float32), 1 (tensor-core prefill, bf16) or 2 (split-KV
 // decode: G * Sq <= 16, keys [key_lo, key_hi) in n_split splits of split_len
 // = 32 or 64, `scratch` float32 of B * H * Sq * n_split * (hd + 2)); route 2
-// runs two kernels, the others one, all on `stream` of `device`. Returns the
-// first CUDA error (0 on success).
+// runs two kernels, the others one, all on `stream` of `device`. `lse`, when
+// not null, takes each row's log-sum-exp of its scaled (and capped) scores,
+// float32 (B, H, Sq) in natural-log units, for the backward; routes 0 and 1
+// only. Returns the first CUDA error (0 on success).
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
-                               void* o, const int64_t* strides, int64_t B,
+                               void* o, float* lse, const int64_t* strides,
+                               int64_t B,
                                int64_t H, int64_t KV, int64_t Sq, int64_t Skv,
                                int64_t kend, int64_t hd, int bf16, int causal,
                                int64_t window, float softcap, int64_t q_offset,
@@ -992,6 +924,7 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
   p.v = v;
   p.o = o;
   p.scratch = static_cast<float*>(scratch);
+  p.lse = lse;
   for (int i = 0; i < 3; ++i) {
     p.qs[i] = strides[i];
     p.ks[i] = strides[3 + i];
@@ -1023,7 +956,7 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
       tile_rows(&p, Sq, kMmaRows);
       return dispatch_mma(hd, p, st);
     case 2:
-      if (p.group * Sq > kDecodeRows || n_split < 1 || scratch == nullptr ||
+      if (lse != nullptr || p.group * Sq > kDecodeRows || n_split < 1 || scratch == nullptr ||
           (split_len != 32 && split_len != kSplitKeys))
         return (int)cudaErrorInvalidValue;
       return bf16 ? dispatch_decode<__nv_bfloat16>(hd, p, KV, st)

@@ -1,6 +1,8 @@
-"""Fault injection for the grid simulator (the grid half of
-``repro.fault``): deterministic site-churn schedules."""
+"""Fault injection: deterministic site-churn schedules for the grid
+simulator, and checkpoint/restart supervision of the training runtime."""
 
-from .failures import churn_schedule
+from .failures import (FailurePlan, SimulatedFailure, SupervisorStats,
+                       TrainingSupervisor, churn_schedule)
 
-__all__ = ["churn_schedule"]
+__all__ = ["FailurePlan", "SimulatedFailure", "SupervisorStats",
+           "TrainingSupervisor", "churn_schedule"]

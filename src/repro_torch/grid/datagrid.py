@@ -2,10 +2,14 @@
 
 One object owns the catalog, the topology, the per-host replica managers
 (HRS by default) and the data-aware scheduler, all the port's own host
-modules (``repro_torch.core``). Serving (``repro_torch.serve.engine``)
-consumes it: prefix-KV blocks and adapters are files, requests are jobs.
-(The reference's input pipeline and checkpoint restore, its other two
-consumers, are not ported yet: ROADMAP queue 1.)
+modules (``repro_torch.core``). Three substrates consume it:
+
+  * the input pipeline (``repro_torch.data.pipeline``): dataset shards are
+    files; each read is a job routed to the host holding the most bytes;
+  * checkpoint restore (``repro_torch.checkpoint``): parameter shards are
+    files; restore sources are HRS replica selections (intra-region first);
+  * serving (``repro_torch.serve.engine``): prefix-KV blocks and adapters
+    are files; requests are jobs.
 
 The service tracks simulated transfer cost (bytes x link) so examples and
 tests can assert the hierarchy is respected without real hardware.

@@ -3,8 +3,8 @@
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` into its own shared library
 with a plain C interface, bound through :mod:`ctypes`. The five simulation
 kernels are held bit-equal to float64 oracles and build with
-``-fmad=false`` (no FMA contraction); the two model kernels are held to a
-tolerance and build without it (:func:`nvcc_flags`). Libraries are built
+``-fmad=false`` (no FMA contraction); the three model kernels are held to
+a tolerance and build without it (:func:`nvcc_flags`). Libraries are built
 at first use (every source in parallel, one ``nvcc`` each) into
 ``build/kernels/`` at the repository root, under a file name that carries a
 hash of the sources and flags, so an edited source is never served from a
@@ -35,8 +35,8 @@ BUILD_DIR = _PKG.parent.parent / "build" / "kernels"
 #: the simulation kernels, bit-exact: built with ``-fmad=false``
 EXACT_KERNELS = ("event_engine", "net_rerate", "strategy_plan", "st_cost",
                  "value_score")
-#: the model kernels of the serving path, held to a tolerance
-MODEL_KERNELS = ("flash_attention", "selective_scan")
+#: the model kernels of the serving and training paths, held to a tolerance
+MODEL_KERNELS = ("flash_attention", "selective_scan", "flash_attention_bwd")
 KERNELS = EXACT_KERNELS + MODEL_KERNELS
 _BASE_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -63,9 +63,12 @@ _SIGNATURES = {
     "value_score": ("value_score",
                     [_VP, _VP, _VP, _VP, _I64, _I64, _INT, _VP, _VP, _INT]),
     "flash_attention": ("flash_attention",
-                        [_VP, _VP, _VP, _VP, _VP, _I64, _I64, _I64, _I64,
+                        [_VP, _VP, _VP, _VP, _VP, _VP, _I64, _I64, _I64, _I64,
                          _I64, _I64, _I64, _INT, _INT, _I64, _F32, _I64, _F32,
                          _INT, _I64, _I64, _I64, _I64, _VP, _VP, _INT]),
+    "flash_attention_bwd": ("flash_attention_bwd",
+                            [_VP] * 11 + [_I64] * 7 + [_INT, _I64, _F32, _I64,
+                                                       _F32, _VP, _INT]),
     "selective_scan": ("selective_scan",
                        [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I64,
                         _I64, _I64, _I64, _INT, _VP, _INT]),

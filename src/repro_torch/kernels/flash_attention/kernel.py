@@ -95,14 +95,18 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
 def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            *, causal: bool = True, window: int | None = None,
                            softcap: float | None = None, q_offset: int = 0,
-                           kv_len: int | None = None) -> torch.Tensor:
+                           kv_len: int | None = None, with_lse: bool = False):
     """Same contract as :func:`.ref.flash_attention_ref`, on CUDA tensors,
     launched on the current stream (no synchronisation). q, k and v may be
     strided views (the model passes ``(B, S, H, hd)`` storage seen as
     ``(B, H, S, hd)``); the result is a ``(B, H, Sq, hd)`` view of a
     ``(B, Sq, H, hd)`` tensor, so the model's head merge is free. A decode
     call allocates its float32 split scratch here, on the current stream
-    (valid under CUDA-graph capture); the kernels allocate nothing."""
+    (valid under CUDA-graph capture); the kernels allocate nothing.
+
+    ``with_lse``: also return each row's log-sum-exp, float32 ``(B, H,
+    Sq)`` (:func:`.ref.flash_attention_lse_ref`), for the backward; the call
+    then takes a prefill route whatever its row count."""
     _check(q, k, v)
     if window is not None and window < 1:
         raise ValueError(f"flash_attention: window {window} < 1")
@@ -112,11 +116,16 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     KV, Skv = k.shape[1], k.shape[2]
     dev = q.device
     out = torch.empty((B, Sq, H, hd), dtype=q.dtype, device=dev).transpose(1, 2)
+    lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=dev)
+           if with_lse else None)
     kend = Skv if kv_len is None else max(0, min(Skv, kv_len))
     if out.numel() == 0:
-        return out
+        return (out, lse) if with_lse else out
     plan = plan_launch(B, H, KV, Sq, kend, causal=causal, window=window,
                        q_offset=q_offset, dtype=q.dtype)
+    if with_lse and plan.route == "decode":     # the decode splits keep no lse
+        plan = LaunchPlan("mma" if q.dtype == torch.bfloat16 else "simt",
+                          plan.key_lo, plan.key_hi)
     scratch = None
     if plan.route == "decode":
         scratch = torch.empty((B, H, Sq, plan.n_split, hd + 2),
@@ -124,7 +133,8 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     strides = (ctypes.c_int64 * 12)(*q.stride()[:3], *k.stride()[:3],
                                     *v.stride()[:3], *out.stride()[:3])
     err = _cuda.entry_point("flash_attention")(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), strides,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        None if lse is None else lse.data_ptr(), strides,
         B, H, KV, Sq, Skv, kend, hd, int(q.dtype == torch.bfloat16),
         int(causal), 0 if window is None else window,
         0.0 if softcap is None else softcap, q_offset, hd ** -0.5,
@@ -132,4 +142,4 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         plan.n_split, None if scratch is None else scratch.data_ptr(),
         _cuda.stream(dev), dev.index)
     _cuda.check("flash_attention", err)
-    return out
+    return (out, lse) if with_lse else out

@@ -5,7 +5,8 @@ The counterpart of ``flash_attention_ref``
 (``src/repro/kernels/flash_attention/ref.py:11``): the scores of every
 query against every key are materialised in float32, masked with the
 finite ``-1e30`` sentinel, soft-maxed and contracted with the values, and
-the result is cast back to the query's dtype. The CPU tests and the
+the result is cast back to the query's dtype (float64 inputs compute in
+float64). The CPU tests and the
 ``backend="plain"`` route run it; the CUDA kernels compute the same
 function with an online softmax over key tiles (prefill) or over splits of
 the key range merged by log-sum-exp (decode, whose plain version is
@@ -49,6 +50,24 @@ def attention_mask(sq: int, skv: int, *, causal: bool, window: int | None,
     return mask
 
 
+def _masked_scores(q: torch.Tensor, k: torch.Tensor, *, causal: bool,
+                  window: int | None, softcap: float | None, q_offset: int,
+                  kv_len: int | None) -> torch.Tensor:
+    """The scaled (and capped) scores of every query against every key,
+    ``(B, KV, G, Sq, Skv)``, the keys a query may not see set to the finite
+    ``-1e30``; in float32, float64 for float64 inputs."""
+    B, H, Sq, hd = q.shape
+    KV, Skv = k.shape[1], k.shape[2]
+    cdt = torch.float64 if q.dtype == torch.float64 else torch.float32
+    qf = q.reshape(B, KV, H // KV, Sq, hd).to(cdt)
+    s = torch.einsum("bkgqd,bksd->bkgqs", qf, k.to(cdt)) * (hd ** -0.5)
+    if softcap is not None:
+        s = softcap * torch.tanh(s / softcap)
+    mask = attention_mask(Sq, Skv, causal=causal, window=window,
+                          q_offset=q_offset, kv_len=kv_len, device=q.device)
+    return torch.where(mask, s, NEG_INF)
+
+
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool = True, window: int | None = None,
                         softcap: float | None = None, q_offset: int = 0,
@@ -56,19 +75,29 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q: (B, H, Sq, hd); k, v: (B, KV, Skv, hd) with H = G * KV (query
     head ``h`` reads KV head ``h // G``). Returns (B, H, Sq, hd) in q's
     dtype."""
+    return flash_attention_lse_ref(q, k, v, causal=causal, window=window,
+                                   softcap=softcap, q_offset=q_offset,
+                                   kv_len=kv_len, with_lse=False)
+
+
+def flash_attention_lse_ref(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, *, causal: bool = True,
+                            window: int | None = None,
+                            softcap: float | None = None, q_offset: int = 0,
+                            kv_len: int | None = None, with_lse: bool = True):
+    """:func:`flash_attention_ref` and each row's log-sum-exp of its
+    masked scores (:func:`_masked_scores`): ``(o, lse)``, lse ``(B, H, Sq)``
+    float32 (float64 for float64 inputs), natural log. The forward of the
+    training path; the backward rebuilds ``P = exp(s - lse)`` from it."""
     B, H, Sq, hd = q.shape
-    KV, Skv = k.shape[1], k.shape[2]
-    G = H // KV
-    qf = q.reshape(B, KV, G, Sq, hd).float()
-    s = torch.einsum("bkgqd,bksd->bkgqs", qf, k.float()) * (hd ** -0.5)
-    if softcap is not None:
-        s = softcap * torch.tanh(s / softcap)
-    mask = attention_mask(Sq, Skv, causal=causal, window=window,
-                          q_offset=q_offset, kv_len=kv_len, device=q.device)
-    s = torch.where(mask, s, NEG_INF)
+    s = _masked_scores(q, k, causal=causal, window=window, softcap=softcap,
+                      q_offset=q_offset, kv_len=kv_len)
     p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bkgqs,bksd->bkgqd", p, v.float())
-    return o.reshape(B, H, Sq, hd).to(q.dtype)
+    o = torch.einsum("bkgqs,bksd->bkgqd", p, v.to(s.dtype))
+    o = o.reshape(B, H, Sq, hd).to(q.dtype)
+    if not with_lse:
+        return o
+    return o, torch.logsumexp(s, dim=-1).reshape(B, H, Sq)
 
 
 def flash_attention_split_ref(q: torch.Tensor, k: torch.Tensor,

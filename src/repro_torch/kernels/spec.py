@@ -275,6 +275,23 @@ def _flash_attention_inputs(B: int, H: int, KV: int, Sq: int, Skv: int,
     return InputCase(args, {"causal": True}, args)
 
 
+def _flash_attention_bwd_inputs(B: int, H: int, KV: int, S: int, hd: int,
+                                seed: int = 2, device="cpu") -> InputCase:
+    """bf16 q, k, v and dO drawn from ``seed``; o and lse from the plain
+    forward (causal) on the same device, as the training path saves them."""
+    # imported here: the kernel packages import this module as they load
+    from .flash_attention.ref import flash_attention_lse_ref
+
+    rng = np.random.default_rng(seed)
+    bf = lambda *s: _t(rng.standard_normal(s).astype(np.float32),  # noqa
+                       device).to(torch.bfloat16)
+    q, k, v = bf(B, H, S, hd), bf(B, KV, S, hd), bf(B, KV, S, hd)
+    do = bf(B, H, S, hd)
+    o, lse = flash_attention_lse_ref(q, k, v, causal=True)
+    args = (q, k, v, o, lse, do)
+    return InputCase(args, {"causal": True}, args)
+
+
 #: The network kernels read their minimum back from a page-locked host word
 #: the launch writes before its stream sync (``kernels/net_call.py``).
 _MAPPED_WORD = ("one stream sync per call, then a read of the mapped "
@@ -371,4 +388,19 @@ FLASH_ATTENTION_SPEC = KernelSpec(
     arg_units=("score", "score", "score"),
     out_units=("score",),
     tol=2e-5,               # float32's, as tests/test_kernels.py
+)
+#: No reference SPEC: the reference has no backward kernel. The budget is the
+#: call's bytes at the audit shape: its inputs (528,384), dq, dk and dv
+#: (262,144) and the float32 Delta scratch (4,096), 794,624 in all.
+FLASH_ATTENTION_BWD_SPEC = KernelSpec(
+    name="flash_attention_bwd", module="repro_torch.kernels.flash_attention_bwd",
+    kernel_attr="flash_attention_bwd_kernel",
+    ref_attr="flash_attention_bwd_ref",
+    domain="model", max_rank=5, budget_bytes=800_000,
+    make_inputs=lambda device="cpu": _flash_attention_bwd_inputs(
+        1, 4, 2, 256, 64, device=device),
+    multi_output=True,
+    arg_units=("score",) * 6,
+    out_units=("score",) * 3,
+    tol=2e-2,               # bf16's, as tests/test_kernels.py
 )

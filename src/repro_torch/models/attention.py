@@ -1,4 +1,5 @@
-"""GQA attention of the serving path, through the flash attention op.
+"""GQA attention of the serving and training paths, through the flash
+attention op.
 
 Both functions take the model's layout — q (B, Sq, H, hd), k and v
 (B, Skv, KV, hd), H = G * KV — and hand the op ``(B, H, S, hd)`` views of
@@ -12,7 +13,7 @@ from __future__ import annotations
 
 import torch
 
-from ..kernels.flash_attention import flash_attention
+from ..kernels.flash_attention import flash_attention, flash_attention_train
 
 
 def attention_blockwise(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -41,3 +42,18 @@ def attention_decode(q: torch.Tensor, k_cache: torch.Tensor,
                                softcap=softcap,
                                q_offset=cache_len, kv_len=cache_len + 1,
                                backend=backend)
+
+
+def attention_train(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    window: int | None = None, softcap: float | None = None,
+                    backend: str = "auto") -> torch.Tensor:
+    """Causal attention of the training path, differentiable: the same
+    views as :func:`attention_blockwise`, through
+    :class:`~repro_torch.kernels.flash_attention.FlashAttentionFn` (the CUDA
+    forward and backward kernels on CUDA tensors). The gradients come back
+    as views of ``(B, S, heads, hd)`` storage, so the head split and merge
+    stay free. Returns (B, S, H, hd)."""
+    o = flash_attention_train(q.transpose(1, 2), k.transpose(1, 2),
+                              v.transpose(1, 2), causal=True, window=window,
+                              softcap=softcap, backend=backend)
+    return o.transpose(1, 2)

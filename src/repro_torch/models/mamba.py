@@ -3,7 +3,9 @@
 The recurrence runs through the selective-scan op: on CUDA tensors the
 hand-written kernel (``csrc/selective_scan.cu``), on CPU tensors its plain
 sequential version. The skip term ``D * x`` is folded into the op, as the
-TPU kernel folds it. Mamba-2 (zamba2) is not ported yet (ROADMAP queue 1).
+TPU kernel folds it. Mamba-2 (zamba2) is not ported yet (ROADMAP queue 1),
+nor is the scan's backward kernel: Mamba-1 trains on the CPU only
+(:func:`check_trainable`).
 """
 
 from __future__ import annotations
@@ -13,6 +15,18 @@ import torch.nn.functional as F
 
 from ..kernels.selective_scan import selective_scan
 from .common import normal_init, silu
+
+
+def check_trainable(device: torch.device) -> None:
+    """Mamba-1 blocks train on the CPU only, through the plain scan under
+    autograd: ``selective_scan``'s backward kernel is not ported yet
+    (ROADMAP queue 1), and on the card the plain version never stands in
+    for a kernel."""
+    if device.type == "cuda":
+        raise NotImplementedError(
+            "training mamba1 blocks on the card needs selective_scan's "
+            "backward kernel, which is not ported to repro_torch yet "
+            "(ROADMAP queue 1); train on device='cpu'")
 
 
 def causal_conv1d(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,

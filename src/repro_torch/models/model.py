@@ -1,15 +1,20 @@
-"""Model facade of the serving path, one entry point per step.
+"""Model facade of the serving and training paths, one entry point per
+step.
 
   init_params(cfg, seed=, device=)             -> params
+  train_logits(cfg, params, batch)             -> (B, S, V) float32
+  loss_fn(cfg, params, batch)                  -> (loss, metrics)
   init_caches(cfg, batch, max_len, device=, dtype=) -> caches
   prefill(cfg, params, tokens, caches=)        -> (last_logits, caches)
   decode_step(cfg, params, caches, token, pos) -> (logits, caches)
   params_from_jax(cfg, tree)                   -> params
 
-Decoder-only models with ``attn``, ``attn_local`` and ``mamba1`` blocks.
-Training, the encoder-decoder and VLM front ends and the other block kinds
-raise ``NotImplementedError`` (ROADMAP queue 1). On one card there is no
-activation sharding, so the reference's ``shardctx.anchor_batch`` has no
+``batch`` is a dict of ``tokens`` and ``labels``, (B, S) integers.
+Decoder-only models with ``attn``, ``attn_local`` and ``mamba1`` blocks;
+``mamba1`` trains on the CPU only (``selective_scan``'s backward kernel is
+not ported yet). The encoder-decoder and VLM front ends and the other block
+kinds raise ``NotImplementedError`` (ROADMAP queue 1). On one card there is
+no activation sharding, so the reference's ``shardctx.anchor_batch`` has no
 counterpart.
 """
 
@@ -17,6 +22,7 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
 from ..device import resolve_device
@@ -66,6 +72,80 @@ def _lm_logits(cfg: ArchConfig, params: dict,
         logits = softcap(logits, cfg.final_softcap)
     return logits
 
+
+# --------------------------------------------------------------------------
+# train / loss
+# --------------------------------------------------------------------------
+
+def _train_hidden(cfg: ArchConfig, params: dict, batch: dict,
+                  remat: bool = False, backend: str = "auto") -> torch.Tensor:
+    tokens = batch["tokens"].to(params["embed"].device, torch.int64)
+    x = _embed_tokens(cfg, params, tokens)
+    hidden, _ = lm_apply(cfg, params, x, mode="train", remat=remat,
+                         backend=backend)
+    return hidden
+
+
+def train_logits(cfg: ArchConfig, params: dict, batch: dict,
+                 remat: bool = False, backend: str = "auto") -> torch.Tensor:
+    """(B, S, V) float32 logits of the training forward."""
+    return _lm_logits(cfg, params, _train_hidden(cfg, params, batch,
+                                                 remat=remat, backend=backend))
+
+
+def _head_matrix(cfg: ArchConfig, params: dict) -> torch.Tensor:
+    return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+
+
+def _chunk_nll(h: torch.Tensor, labels: torch.Tensor, head: torch.Tensor,
+               cap: float | None) -> torch.Tensor:
+    """Summed next-token NLL of one chunk: the logits in the weights'
+    dtype, cast to float32, capped; the gold logit picked by an index mask
+    over the vocab, as the reference does."""
+    logits = (h @ head).float()
+    if cap is not None:
+        logits = softcap(logits, cap)
+    logz = torch.logsumexp(logits, dim=-1)
+    iota = torch.arange(logits.shape[-1], device=logits.device)
+    gold = torch.where(iota == labels[..., None], logits, 0.0).sum(-1)
+    return (logz - gold).sum()
+
+
+def chunked_cross_entropy(cfg: ArchConfig, params: dict, hidden: torch.Tensor,
+                          labels: torch.Tensor,
+                          chunk: int = 512) -> torch.Tensor:
+    """Token-chunked mean cross-entropy: the (tokens x vocab) logits never
+    exist in full. Each chunk of ``chunk`` positions (all of S when it does
+    not divide S) is computed, reduced and, under ``checkpoint``,
+    recomputed in the backward: at gemma3-1b's full width one chunk's
+    float32 logits are 4 x 512 x 262,144 x 4 B = 2.1 GB, where the whole
+    tensor would be 4.3 GB."""
+    B, S, _ = hidden.shape
+    chunk = min(chunk, S)
+    nc = S // chunk if S % chunk == 0 else 1
+    chunk = S // nc
+    head = _head_matrix(cfg, params)
+    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for c in range(nc):
+        sl = slice(c * chunk, (c + 1) * chunk)
+        total = total + checkpoint(_chunk_nll, hidden[:, sl], labels[:, sl],
+                                   head, cfg.final_softcap,
+                                   use_reentrant=False)
+    return total / (B * S)
+
+
+def loss_fn(cfg: ArchConfig, params: dict, batch: dict, remat: bool = False,
+            backend: str = "auto") -> tuple[torch.Tensor, dict]:
+    """Mean next-token NLL of ``batch`` and ``{"loss", "perplexity"}``."""
+    hidden = _train_hidden(cfg, params, batch, remat=remat, backend=backend)
+    labels = batch["labels"].to(hidden.device, torch.int64)
+    nll = chunked_cross_entropy(cfg, params, hidden, labels)
+    return nll, {"loss": nll, "perplexity": torch.exp(nll)}
+
+
+# --------------------------------------------------------------------------
+# serving
+# --------------------------------------------------------------------------
 
 def prefill(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *,
             caches: dict, backend: str = "auto") -> tuple[torch.Tensor, dict]:

@@ -6,7 +6,12 @@ parameters keep the reference's layout with the stacked group axis
 unstacked: ``params["groups"][g][f"b{i}"]`` is block ``i`` of group ``g``,
 ``params["rest"][i]`` block ``i`` of the remainder; the caches mirror it.
 
-Two modes share the block code:
+Three modes share the block code:
+  * train: causal forward, no caches, differentiable: attention goes
+    through :class:`~repro_torch.kernels.flash_attention.FlashAttentionFn`
+    (the CUDA forward and backward kernels on the card); ``remat=True``
+    checkpoints each group and each remainder block
+    (``torch.utils.checkpoint``, as the reference's ``jax.checkpoint``);
   * prefill: causal forward over the prompt, writing every layer's KV or
     state into the caches;
   * decode: one token against the caches (``pos`` = current length).
@@ -17,22 +22,24 @@ writes its token's K/V at slot ``pos``.
 
 Blocks ``attn``, ``attn_local`` and ``mamba1`` are ported; ``mamba2``,
 ``shared_attn`` and MoE feed-forward raise ``NotImplementedError`` (ROADMAP
-queue 1), as does training.
+queue 1). ``mamba1`` trains on the CPU only: ``selective_scan``'s backward
+kernel is not ported yet.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
-from .attention import attention_blockwise, attention_decode
+from .attention import attention_blockwise, attention_decode, attention_train
 from .common import ACTS, normal_init, rms_norm, rope
-from .mamba import init_mamba1, mamba1_decode, mamba1_forward
+from .mamba import check_trainable, init_mamba1, mamba1_decode, mamba1_forward
 from .mlp import gated_mlp, init_gated_mlp
 
 ATTN_KINDS = ("attn", "attn_local")
 KINDS = ATTN_KINDS + ("mamba1",)
-MODES = ("prefill", "decode")
+MODES = ("train", "prefill", "decode")
 
 
 def _not_ported(what: str) -> NotImplementedError:
@@ -116,17 +123,22 @@ def init_block_cache(cfg: ArchConfig, kind: str, batch: int, max_len: int, *,
 # --------------------------------------------------------------------------
 
 def apply_block(cfg: ArchConfig, kind: str, p: dict, x: torch.Tensor, *,
-                mode: str, cache: dict, pos: int | None = None,
-                backend: str = "auto") -> tuple[torch.Tensor, dict]:
-    """Returns (x, cache); ``cache`` is updated in place."""
+                mode: str, cache: dict | None = None, pos: int | None = None,
+                backend: str = "auto") -> tuple[torch.Tensor, dict | None]:
+    """Returns (x, cache); ``cache`` is updated in place (None in train
+    mode)."""
     if mode not in MODES:
-        raise _not_ported(f"mode {mode!r} (training)")
+        raise ValueError(f"unknown mode {mode!r} (want one of {MODES})")
     if kind in ATTN_KINDS:
         return _apply_attn(cfg, kind, p, x, mode=mode, cache=cache, pos=pos,
                            backend=backend)
     if kind != "mamba1":
         raise _not_ported(f"block kind {kind!r}")
     h = rms_norm(x, p["ln"])
+    if mode == "train":
+        check_trainable(x.device)
+        y, _ = mamba1_forward(p["mixer"], h, cfg.ssm, backend=backend)
+        return x + y, None
     if mode == "prefill":
         y, (conv, ssm_state) = mamba1_forward(p["mixer"], h, cfg.ssm,
                                               backend=backend)
@@ -166,7 +178,10 @@ def _apply_attn(cfg: ArchConfig, kind: str, p: dict, x: torch.Tensor, *,
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
 
-    if mode == "prefill":
+    if mode == "train":
+        o = attention_train(q, k, v, window=window, softcap=cfg.attn_softcap,
+                            backend=backend)
+    elif mode == "prefill":
         cache["k"][:, :S] = k
         cache["v"][:, :S] = v
         o = attention_blockwise(q, k, v, window=window,
@@ -212,11 +227,36 @@ def init_lm_params(cfg: ArchConfig, gen: torch.Generator) -> dict:
     return params
 
 
+def _train_stack(cfg: ArchConfig, params: dict, x: torch.Tensor, *,
+                 remat: bool, backend: str) -> torch.Tensor:
+    """The train-mode stack: one checkpointed segment per group and per
+    remainder block under ``remat`` (each recomputed in the backward, so
+    training holds one segment's activations at a time)."""
+    def run(blocks, h):
+        for kind, p in blocks:
+            h, _ = apply_block(cfg, kind, p, h, mode="train", backend=backend)
+        return h
+
+    segments = [[(kind, g[f"b{i}"]) for i, kind in enumerate(cfg.layer_pattern)]
+                for g in params["groups"]]
+    segments += [[(kind, p)] for kind, p in zip(cfg.remainder_pattern,
+                                                params["rest"])]
+    for blocks in segments:
+        x = (checkpoint(run, blocks, x, use_reentrant=False) if remat
+             else run(blocks, x))
+    return x
+
+
 def lm_apply(cfg: ArchConfig, params: dict, x: torch.Tensor, *, mode: str,
-             caches: dict, pos: int | None = None,
-             backend: str = "auto") -> tuple[torch.Tensor, dict]:
+             caches: dict | None = None, pos: int | None = None,
+             backend: str = "auto",
+             remat: bool = False) -> tuple[torch.Tensor, dict | None]:
     """Run the full stack on hidden states x (B, S, D); returns the final
-    normed hidden states and the caches (updated in place)."""
+    normed hidden states and the caches (updated in place; None in train
+    mode, where ``remat`` checkpoints each group and remainder block)."""
+    if mode == "train":
+        x = _train_stack(cfg, params, x, remat=remat, backend=backend)
+        return rms_norm(x, params["final_norm"]), None
     for (kind, p), (_, cache) in zip(_layers(cfg, params),
                                      _layers(cfg, caches)):
         x, _ = apply_block(cfg, kind, p, x, mode=mode, cache=cache, pos=pos,

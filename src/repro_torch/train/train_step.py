@@ -1,0 +1,119 @@
+"""Training step: loss -> gradients (microbatched) -> AdamW update (the
+counterpart of ``repro.train.train_step``).
+
+The step is functional: it returns new params and a new optimizer state
+and leaves its inputs unchanged, so that ``TrainingSupervisor`` can
+re-issue a straggling step on the same state
+(:mod:`repro_torch.fault.failures`). Gradients are taken with
+``torch.autograd.grad`` on detached views of the parameters (no copy, and
+the caller's tensors are not marked). Microbatch gradients accumulate in
+float32 and are divided by their count. With ``OptimizerConfig.
+compress_grads`` the optimizer state carries the int8 quantizer's error
+feedback under ``"ef"`` (``init_train_state(..., compress_grads=True)``),
+so a checkpoint keeps it. On one card there is no mesh: the reference's
+sharding pins have no counterpart.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from ..configs.base import ArchConfig
+from ..device import resolve_device
+from ..models import model as M
+from .optimizer import (OptimizerConfig, adamw_update, init_compress_state,
+                        init_opt_state, tree_map)
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    n_microbatches: int = 1
+    remat: bool = True
+    opt: OptimizerConfig = OptimizerConfig()
+
+
+def micro_loss(cfg: ArchConfig, tcfg: TrainConfig, params: dict,
+               micro: dict, backend: str = "auto"):
+    """Loss and metrics of one microbatch. MoE configs raise in
+    ``check_config`` (ROADMAP queue 1), so the reference's auxiliary
+    load-balancing term has no branch here."""
+    return M.loss_fn(cfg, params, micro, remat=tcfg.remat, backend=backend)
+
+
+def _split_micro(batch: dict, n: int) -> list[dict]:
+    """(B, ...) -> n microbatches of B / n rows."""
+    out = [{} for _ in range(n)]
+    for key, x in batch.items():
+        b = x.shape[0]
+        if b % n:
+            raise ValueError(f"batch {b} not divisible by {n} microbatches")
+        for i, part in enumerate(x.split(b // n)):
+            out[i][key] = part
+    return out
+
+
+def grad_fn(cfg: ArchConfig, tcfg: TrainConfig, params: dict, batch: dict,
+            backend: str = "auto"):
+    """Microbatched value and gradient. Returns (mean_loss, metrics,
+    grads): with one microbatch the gradients in the parameters' dtypes,
+    else their float32 mean."""
+    leaves = tree_map(lambda p: p.detach().requires_grad_(), params)
+    flat: list = []
+    tree_map(flat.append, leaves)          # tree_map's own leaf order
+
+    def value_and_grad(micro):
+        loss, metrics = micro_loss(cfg, tcfg, leaves, micro, backend=backend)
+        grads = torch.autograd.grad(loss, flat)
+        return loss.detach(), metrics, grads
+
+    n = tcfg.n_microbatches
+    if n == 1:
+        loss, metrics, grads = value_and_grad(batch)
+        metrics = {k: v.detach() for k, v in metrics.items()}
+    else:
+        acc, loss_sum = None, None
+        for micro in _split_micro(batch, n):
+            loss, _, grads = value_and_grad(micro)
+            g32 = [g.to(torch.float32) for g in grads]
+            acc = g32 if acc is None else [a + g for a, g in zip(acc, g32)]
+            loss_sum = loss if loss_sum is None else loss_sum + loss
+        grads = [a / n for a in acc]
+        loss = loss_sum / n
+        metrics = {"loss": loss}
+    it = iter(grads)
+    return loss, metrics, tree_map(lambda _: next(it), params)
+
+
+def make_train_step(cfg: ArchConfig, tcfg: TrainConfig):
+    """Returns train_step(params, opt_state, batch) -> (params, state,
+    metrics); ``batch`` holds (B, S) ``tokens`` and ``labels`` tensors on
+    the parameters' device."""
+
+    def train_step(params, opt_state, batch):
+        if tcfg.opt.compress_grads and "ef" not in opt_state:
+            raise ValueError("compress_grads needs the error-feedback state: "
+                             "init_train_state(..., compress_grads=True)")
+        loss, metrics, grads = grad_fn(cfg, tcfg, params, batch)
+        state = {k: v for k, v in opt_state.items() if k != "ef"}
+        params, state, ef, stats = adamw_update(tcfg.opt, grads, params,
+                                                state, opt_state.get("ef"))
+        if ef is not None:
+            state["ef"] = ef
+        return params, state, {**metrics, **stats, "loss": loss}
+
+    return train_step
+
+
+def init_train_state(cfg: ArchConfig, *, seed: int = 0,
+                     device: "str | torch.device" = "cuda",
+                     compress_grads: bool = False):
+    """Seeded parameters (:func:`repro_torch.models.model.init_params`)
+    and a fresh optimizer state on ``device``, with a zero error-feedback
+    tree under ``"ef"`` when ``compress_grads``."""
+    params = M.init_params(cfg, seed=seed, device=resolve_device(device))
+    state = init_opt_state(params)
+    if compress_grads:
+        state["ef"] = init_compress_state(params)
+    return params, state

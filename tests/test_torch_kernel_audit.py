@@ -2,12 +2,16 @@
 (``repro_torch.kernels.registry``, ``repro_torch.kernels.spec``,
 ``repro_torch.analysis.kernel_audit``).
 
-The registry finds exactly the seven kernel packages; each SPEC carries
-the reference SPEC's domain, rank cap, unit signature and audit shapes
-(``repro.kernels``, which imports no JAX), and its budget, doubled for
-the float64 simulation kernels; its inputs are the reference's draws in
-float64, and its plain version at them gives the reference oracle's
-result. The CPU half of the audit passes for all seven and flags toy
+The registry finds exactly the eight kernel packages; each SPEC of the
+seven TPU kernels' counterparts carries the reference SPEC's domain, rank
+cap, unit signature and audit shapes (``repro.kernels``, which imports no
+JAX), and its budget, doubled for the float64 simulation kernels; its
+inputs are the reference's draws in float64, and its plain version at them
+gives the reference oracle's result. ``flash_attention_bwd`` has no
+reference SPEC (the reference has no backward kernel): its SPEC is the
+port's own, its plain version at its audit inputs the exact float64
+gradient up to its bf16 rounding convention. The CPU half of the audit
+passes for all eight and flags toy
 plain versions that broadcast to rank 3, overrun their budget, hold the
 wrong float dtype or read a value back to the host. The card half runs
 under ``-m gpu`` (this file's imports need no JAX, so it runs on the
@@ -29,8 +33,10 @@ from repro_torch.kernels import (KernelSpec, get_kernel_spec,
                                  registered_kernels)
 from repro_torch.kernels.spec import InputCase
 
-NAMES = ["event_engine", "flash_attention", "net_rerate", "selective_scan",
-         "st_cost", "strategy_plan", "value_score"]
+#: the counterparts of the reference's kernels, each with a reference SPEC
+REF_NAMES = ["event_engine", "flash_attention", "net_rerate",
+             "selective_scan", "st_cost", "strategy_plan", "value_score"]
+NAMES = sorted(REF_NAMES + ["flash_attention_bwd"])
 SIM = ["event_engine", "net_rerate", "st_cost", "strategy_plan",
        "value_score"]
 
@@ -56,7 +62,7 @@ def test_registry_discovers_all_kernels():
         get_kernel_spec("no_such_kernel")
 
 
-@pytest.mark.parametrize("name", NAMES)
+@pytest.mark.parametrize("name", REF_NAMES)
 def test_spec_matches_reference_spec(name):
     spec, ref = get_kernel_spec(name), ref_kernels.get_kernel_spec(name)
     for field in ("domain", "max_rank", "arg_units", "out_units",
@@ -76,7 +82,7 @@ def test_spec_matches_reference_spec(name):
             [tuple(np.shape(a)) for a in ref_args]
 
 
-@pytest.mark.parametrize("name", NAMES)
+@pytest.mark.parametrize("name", REF_NAMES)
 def test_inputs_are_the_reference_draws(name):
     """The port's operands are the reference's draws: rounded to the
     reference's float32 they are its arrays, entry for entry; the
@@ -127,6 +133,31 @@ def test_plain_versions_match_reference_oracles(name, small):
     assert len(got) == len(want)
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+def test_bwd_spec_and_inputs():
+    """flash_attention_bwd's own SPEC: a model kernel on bf16 q, k, v, o,
+    dO and the float32 lse of the plain forward; its plain version at the
+    audit inputs is the float64 gradient within the bf16 tolerance."""
+    from repro_torch.kernels.flash_attention import flash_attention_ref
+
+    spec = get_kernel_spec("flash_attention_bwd")
+    case = spec.make_inputs("cpu")
+    assert spec.domain == "model" and spec.multi_output and spec.tol == 2e-2
+    assert [t.dtype for t in case.operands] == [torch.bfloat16] * 4 + [
+        torch.float32, torch.bfloat16]
+    q, k, v, o, lse, do = case.operands
+    assert lse.shape == q.shape[:3]
+    in_out = sum(t.numel() * t.element_size() for t in case.operands)
+    in_out += sum(t.numel() * t.element_size() for t in (q, k, v))
+    assert in_out + lse.numel() * 4 <= spec.budget_bytes
+    got = spec.load_ref()(*case.args, **case.kwargs)
+    leaves = [t.double().requires_grad_() for t in (q, k, v)]
+    flash_attention_ref(*leaves, causal=True).backward(do.double())
+    for g, leaf in zip(got, leaves):
+        scale = float(leaf.grad.abs().max())
+        np.testing.assert_allclose(g.double().numpy(), leaf.grad.numpy(),
+                                   atol=spec.tol * scale, rtol=spec.tol)
 
 
 # -- the CPU half -------------------------------------------------------------
