@@ -8,10 +8,12 @@ Phases, each raising on failure (the script then exits non-zero):
 1. the card: its name and power limit (``nvidia-smi``);
 2. build all eight CUDA libraries from ``src/repro_torch/csrc`` (one ``nvcc``
    each, in parallel); print ``ptxas``'s registers and spills of every
-   entry function, and the tensor-core instructions (``HMMA``/``HGMMA``)
-   of every ``flash_attention`` and ``flash_attention_bwd`` kernel from
-   ``cuobjdump -sass`` (each bf16 tensor-core prefill kernel and each dK/dV
-   and dQ kernel must have some), and the non-coherent loads
+   entry function (no ``flash_attention_bwd`` entry function may spill),
+   the tensor-core instructions (``HMMA``/``HGMMA``) of every
+   ``flash_attention`` kernel from ``cuobjdump -sass`` (each bf16
+   tensor-core prefill kernel must have some) and the warpgroup products
+   (``HGMMA``) of every ``flash_attention_bwd`` kernel (the dK/dV and the
+   dQ kernel of each head dim must have some), and the non-coherent loads
    of the network cluster kernels (none may be narrower than 64 bits: their
    int32 path rows are written and read in one launch);
 3. the two network kernels (one thread-block cluster per engine call, the
@@ -115,13 +117,15 @@ Phases, each raising on failure (the script then exits non-zero):
    and gemma2-27b's heads with its softcap 50 (H 32, KV 16, hd 128, S
    512): dq, dk and dv against the float32 plain backward, each within
    twice the plain bf16 route's own error against it, and against the
-   plain backward on the same inputs within ``TOL``; the forward's lse
+   plain backward on the same inputs within ``TOL``, and bit-equal
+   between two calls; the forward's lse
    within ``TOL``; device and wrapper times of the forward with lse and of
    the backward, the plain backward's, and
    ``scaled_dot_product_attention`` forward + backward beside the bound by
    operations (2.5 x the forward's); the port's forward + backward and
    the library's, as device time by the profiler, with the library's
-   backend read from its kernels' names. (b) gemma3-1b at full width and depth
+   backend read from its kernels' names and its backward kernels alone
+   (cuDNN's bprop). (b) gemma3-1b at full width and depth
    through ``repro_torch.launch.train``'s functions, batch 4 x 1,024: the
    first step's loss and every gradient leaf on the kernels against
    ``backend="plain"`` on the card within ``TRAIN_TOL`` (the plain bf16
@@ -1781,6 +1785,12 @@ def phase_train_kernels(dev) -> dict:
         plain = flash_attention_bwd_ref(q, k, v, ob, lseb, do, **kw)
         ok_, lse_k = flash_attention_kernel(q, k, v, with_lse=True, **kw)
         got = flash_attention_bwd_kernel(q, k, v, ok_, lse_k, do, **kw)
+        # no float atomics: a second call on the same inputs is bit-equal
+        again = flash_attention_bwd_kernel(q, k, v, ok_, lse_k, do, **kw)
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"flash_attention_bwd {name}: two calls on "
+                                 "the same inputs differ")
+        del again
         # the plain version on the very same inputs (it rounds P and dS to
         # bf16 where the kernel does): within the bf16 tolerance
         same = flash_attention_bwd_ref(q, k, v, ok_, lse_k, do, **kw)
@@ -1855,12 +1865,17 @@ def phase_train_kernels(dev) -> dict:
                      library, rounds=5, calls=10, warmup=3),
                  library_backend=None if library is None
                  else sdpa_backend(lib_split),
+                 # the library's backward kernels alone (cuDNN's bprop)
+                 library_bwd_ms=None if library is None else split_ms(
+                     {k_: v_ for k_, v_ in lib_split.items()
+                      if "bprop" in k_ or "bwd" in k_.lower()}, 20),
                  library_top=None if library is None else [
                      (k[:70], us / 20) for k, (us, _) in sorted(
                          lib_split.items(), key=lambda kv: -kv[1][0])[:4]],
                  bytes=bytes_, flops=flops, bound_ms=bound_ms, bound_by=term)
         lib = ("none" if library is None
-               else f"{1e3 * r['library_ms']!r}us device ("
+               else f"{1e3 * r['library_ms']!r}us device, its backward "
+                    f"kernels alone {1e3 * r['library_bwd_ms']!r}us ("
                     f"{r['library_backend']} backend; heaviest, us a call: "
                     f"{r['library_top']}), "
                     f"{1e3 * r['library_wrapper_ms']!r}us eager")
@@ -1868,6 +1883,7 @@ def phase_train_kernels(dev) -> dict:
               f"(tol 2 x plain bf16 route's: {tols}) lse_err={lse_err!r}; "
               f"against the plain version on the same inputs: max abs err "
               f"{same_err!r} (within atol = rtol = {TOL['bfloat16']}); "
+              f"two calls bit-equal; "
               f"device: forward+lse={1e3 * r['lse_ms']!r}us "
               f"backward={1e3 * r['ms']!r}us plain backward="
               f"{1e3 * r['plain_ms']!r}us; through the wrapper: backward="
@@ -2156,10 +2172,11 @@ def sass_counts(lib_name: str, pattern: str) -> dict:
 
 def phase_sass() -> dict:
     """Read the SASS of two kinds of kernel. The tensor-core instructions
-    (``HMMA``, ``HGMMA``) of each ``flash_attention`` and
-    ``flash_attention_bwd`` entry function: raises unless each
-    tensor-core prefill kernel and each dK/dV and dQ kernel (one per head
-    dim) has some; the other routes run on the CUDA cores. The non-coherent
+    of each ``flash_attention`` entry function (``HMMA``, ``HGMMA``):
+    raises unless each tensor-core prefill kernel has some; the other
+    routes run on the CUDA cores. The warpgroup products (``HGMMA``) of
+    each ``flash_attention_bwd`` entry function: raises unless the dK/dV
+    and the dQ kernel of every head dim have some. The non-coherent
     read-only loads (``LDG...CONSTANT``) narrower than 64 bits in the
     network cluster kernels: raises on any, since their int32 reads (path
     rows, index lists) may see rows the same launch wrote."""
@@ -2172,13 +2189,15 @@ def phase_sass() -> dict:
     if len(mma) != len(HEAD_DIMS) or not all(mma.values()):
         raise AssertionError(f"tensor-core prefill kernels without HMMA: "
                              f"{mma}")
-    bwd = sass_counts("flash_attention_bwd", r"\bH(G)?MMA\b")
+    bwd = sass_counts("flash_attention_bwd", r"\bHGMMA\b")
     for fn, n in sorted(bwd.items()):
-        print(f"[sass] flash_attention_bwd: {fn}: {n} HMMA/HGMMA "
-              "instructions")
-    mma = {fn: n for fn, n in bwd.items() if "delta_kernel" not in fn}
-    if len(mma) != 2 * len(HEAD_DIMS) or not all(mma.values()):
-        raise AssertionError(f"backward kernels without HMMA: {mma}")
+        print(f"[sass] flash_attention_bwd: {fn}: {n} HGMMA instructions")
+    want = {f"void {kind}<{hd}>" for kind in ("dkdv_kernel", "dq_kernel")
+            for hd in HEAD_DIMS}
+    missing = sorted(fn for fn in want if not bwd.get(fn))
+    if missing:
+        raise AssertionError(f"backward product kernels without HGMMA: "
+                             f"{missing} (found {bwd})")
     narrow_nc = {}
     for lib in ("net_rerate", "event_engine"):
         nc = sass_counts(lib, r"\bLDG\S*\.CONSTANT\b")
@@ -2217,6 +2236,12 @@ def main() -> int:
     for name, reports in ptxas.items():
         for fn, report in reports:
             print(f"[build] {name}: {fn}: {report}")
+    spills = [fn for fn, report in ptxas.get("flash_attention_bwd", [])
+              if not report.endswith(" 0 bytes spill stores, 0 bytes spill "
+                                     "loads")]
+    if spills:
+        raise AssertionError(f"flash_attention_bwd entry functions that "
+                             f"spill: {spills}")
     sass = phase_sass()
 
     kernels = phase_kernels(dev)
@@ -2364,7 +2389,9 @@ def main() -> int:
         "library": ("scaled_dot_product_attention forward + backward, "
                     "device time by the profiler; compare fwd_bwd_ms"),
         "library_backend": row["library_backend"],
+        "library_bwd_ms": row["library_bwd_ms"],
         "library_wrapper_ms": row["library_wrapper_ms"],
+        "split_us": row["split_us"],
         "fwd_bwd_ms": row["fwd_bwd_ms"],
         "wrapper_ms": row["wrapper_ms"],
         "plain_wrapper_ms": row["plain_wrapper_ms"], "shape": row["shape"],
@@ -2373,14 +2400,15 @@ def main() -> int:
         "other_shapes": [{k: r[k] for k in
                           ("shape", "max_abs_err", "ms", "plain_ms",
                            "wrapper_ms", "fwd_bwd_ms", "library_ms",
-                           "library_backend", "library_wrapper_ms",
+                           "library_bwd_ms", "library_backend",
+                           "library_wrapper_ms", "split_us",
                            "bound_ms", "bound_by", "errors", "tolerances",
                            "same_inputs_err")}
                          for r in rows[1:]],
         "training": {k: v for k, v in train.items() if k != "launches"},
         "supervisor": supervised,
         "ptxas": dict(ptxas.get("flash_attention_bwd", [])),
-        "tensor_core_instructions": sass["bwd_tensor_core_instructions"],
+        "hgmma_instructions": sass["bwd_tensor_core_instructions"],
     })
     for entry in summary:
         if entry["name"] == "flash_attention":

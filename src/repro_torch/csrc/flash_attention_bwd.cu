@@ -1,5 +1,5 @@
-// Flash attention backward, bf16 on the tensor cores: dQ, dK and dV of every
-// attention layer of gemma3-1b at each training step.
+// Flash attention backward, bf16 on Hopper's tensor cores: dQ, dK and dV of
+// every attention layer of gemma3-1b at each training step.
 //
 // The TPU kernel it stands beside, _flash_kernel
 // (src/repro/kernels/flash_attention/kernel.py:29, pallas_call at :113), has
@@ -9,528 +9,883 @@
 // kernel; its plain version is flash_attention_bwd_ref
 // (kernels/flash_attention_bwd/ref.py).
 //
-// Bound by operations: the gemma3-1b global layer (B 4, H 4, KV 1, S 1,024,
-// hd 256) needs 2.5 times the forward's 4 B H pairs hd, ~21.5 GFLOP, ~21.7 us
-// at 989 TFLOP/s. This first form recomputes S and dP in both kernels below
-// (7 products of the forward's size, not 5) so that neither needs atomics.
+// Bound by operations: five products of the forward's size (S = Q K^T,
+// dP = dO V^T, dV = P^T dO, dK = dS^T Q, dQ = dS K), 2.5 times the
+// forward's 4 B H pairs hd: ~21.5 GFLOP at the gemma3-1b global layer
+// (B 4, H 4, KV 1, S 1,024, hd 256, causal), ~21.7 us at 989 TFLOP/s.
 //
 // The forward wrote lse = m + ln l per (batch, head, query) row. With
 // Delta_i = sum_d dO_i,d O_i,d, the backward of O = softmax(C) V, where
 // C = softcap(S * scale) (C = S * scale without a softcap), is
 //
 //   P = exp(C - lse)        dV = P^T dO          dP = dO V^T
-//   dC = P o (dP - Delta)   dS = dC o (1 - (C / cap)^2) * scale
-//   dQ = dS K               dK = dS^T Q
+//   g = scale (1 - (C / cap)^2), or scale without a softcap
+//   dS = (P (dP - Delta)) g dQ = dS K            dK = dS^T Q
 //
-// Rounding: S, dP, P, dS and every sum are float32; P and dS are rounded to
-// bf16 as the A operands of their tensor-core products (dV, dK, dQ), as the
-// forward rounds P before P V. The plain version rounds them at the same
-// places, so the two differ only in the order of float32 sums.
+// Rounding: S, dP, P, g and every sum are float32; P and dS are rounded to
+// bf16 where they become tensor-core operands (dV, dK, dQ), as the forward
+// rounds P before P V. The plain version computes the same expressions in
+// the same order and rounds at the same places, so the two differ only in
+// the order of float32 sums.
 //
-// Three launches:
-//   delta_kernel: one warp per row, Delta in float32 (B, H, Sq).
-//   dkdv_kernel: one block of 8 warps per (batch, KV head, tile of 32 keys).
-//     It walks every row tile that can see its keys: the G query heads of
-//     the group packed into 64-row tiles with their queries (as the forward
-//     packs them), only the query tiles inside the causal, window and kend
-//     bounds, each tile's Q and dO rows double-buffered through cp.async.
-//     Per row tile: the 8 warps compute S and dP (64 x 32, a 16 x 16 block
-//     each) and write P and dS to shared memory in bf16; then each warp owns
-//     16 keys x HD/4 dims of dV += P^T dO and dK += dS^T Q (ldmatrix.trans
-//     reads P^T and dS^T). Summing the group's heads inside the block keeps
-//     GQA free of atomics. At hd 256 a 32-key dK + dV accumulator is 64 KB of
-//     float32: 64 registers a thread over 256 threads.
-//   dq_kernel: one block of 8 warps per (batch, KV group, 64-row tile), the
-//     rows packed as in the forward; it walks the key tiles the rows can see
-//     (K and V double-buffered), recomputes S, dP and dS the same way and
-//     accumulates dQ += dS K, each warp 16 rows x HD/2 dims. Deterministic:
-//     no float atomics anywhere.
-// Both big kernels read q, k, v, dO and O through element strides (the
-// model's (B, S, H, hd) storage seen as (B, H, S, hd)) and write dQ, dK, dV
-// through the strides of the (B, S, heads, hd) storage the wrapper allocates.
-// Keys past kend and keys no query sees get zero dK and dV.
+// Design (the Hopper primitives are in hopper.cuh). The launch plan is
+// plan_bwd in kernels/flash_attention_bwd/kernel.py: the tiles' shapes, and
+// a table of the tile walk (each launch position's key tile with its query
+// tiles, each dQ position's row tile with its key tiles) that the kernels
+// read and the CPU tests hold. What each part does about the earlier
+// mma.sync form:
+//   1. wgmma, not mma.sync + ldmatrix. Every product is a
+//      wgmma.mma_async of 64-row tiles read from shared memory by
+//      descriptor (128-, 64- or 32-byte swizzle by head dim; Q, K, V and dO
+//      K-major, and MN-major through imm-trans-b where a product reduces
+//      over their rows), float32 accumulators in registers, 64-key tiles.
+//      At hd >= 128 two consumer warpgroups split each tile (the scores by
+//      rows, the outputs by hd) and take 232 registers a thread while the
+//      producer's drop to 40 (setmaxnreg; 384 threads launch at 168). P and
+//      dS go to shared memory as bf16 in the 128-byte-swizzled K-major
+//      layout the next product reads. Within a tile P is computed while dP
+//      is still in flight, and dV's product runs while dS is computed.
+//   2. A grid that fills and balances the card. dkdv_kernel has one block
+//      per (batch, query head, key tile), not per KV head: 256 blocks at
+//      the gemma3-1b global layer where the earlier form had 128. The
+//      G = H / KV heads of a KV head are one thread-block cluster (the
+//      largest divisor of G up to 8; several heads a block beyond that).
+//      Key tiles launch longest first (key tile 0 first under the causal
+//      mask), so the last wave is short. dq_kernel keeps the forward's
+//      packing of a group's heads into 64-row tiles, longest first (the
+//      last query tile under the causal mask).
+//   3. S and dP are still computed twice: dq_kernel recomputes them, so
+//      the backward runs seven products of the forward's size where five
+//      would do. Folding dQ into dkdv_kernel would need a float32 dQ
+//      scratch summed across key tiles in a fixed order; not done here.
+//   4. The operands are copied by TMA, not by the SMs. One producer thread
+//      keeps the next row tiles (dK/dV: Q, dO and their lse, Delta) or key
+//      tiles (dQ: K, V) in flight with 4-D TMA loads over the model's
+//      strided (B, S, heads, hd) storage (maps built on the host by
+//      cuTensorMapEncodeTiled, found through cudaGetDriverEntryPoint),
+//      two stages deep at hd 256 and four below, full / empty mbarriers
+//      between it and the consumers.
+//   delta_kernel: Delta in float32 (B, H, Sq), hd / 8 lanes a row.
+// No float atomics: after its walk each block of a cluster puts its float32
+// dK and dV in shared memory, and each block sums a slice of them across
+// the cluster through distributed shared memory in ascending rank (= head)
+// order, rounding to bf16 once; dQ is summed inside one block. So two calls
+// on the same inputs give bit-equal gradients. Keys past kend (and keys no
+// query sees) get zero dK and dV: the K and V maps end at kend, so TMA
+// fills those rows with zeros, and P = dS = 0 there.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
 #include <cstdint>
 
+#include "hopper.cuh"
 #include "mma_bf16.cuh"
 
 namespace {
 
 using T = __nv_bfloat16;
 
+constexpr int kTileRows = 64;   // keys of a key tile, rows of a row tile
+constexpr int kMaxCluster = 8;
+
 struct BwdParams {
-  const T* q;
-  const T* k;
-  const T* v;
+  CUtensorMap tq_kv, tdo_kv;   // Q, dO boxes of the dK/dV row tiles
+  CUtensorMap tq_q, tdo_q;     // Q, dO boxes of the dQ row tiles
+  CUtensorMap tk, tv;          // K, V boxes of 64 keys (ending at kend)
   const T* o;
   const T* dout;
-  const float* lse;     // (B, H, Sq), natural log
-  float* delta;         // (B, H, Sq)
+  int64_t os[3], dos[3];       // element strides: batch, head, position
+  const float* lse;            // (B, H, Sq), natural log
+  float* delta;                // (B, H, Sq)
   T* dq;
   T* dk;
   T* dv;
-  int64_t qs[3], ks[3], vs[3], os[3], dos[3], dqs[3], dks[3], dvs[3];
+  int64_t dqs[3], dks[3], dvs[3];
   int batch;
-  int heads;            // H
-  int kv_heads;         // KV
-  int group;            // G = H / KV
-  int heads_per_block;  // query heads packed into a 64-row tile
-  int block_q;          // queries per row tile
-  int n_hblocks;        // G / heads_per_block
-  int64_t n_qtiles;     // ceil(Sq / block_q)
-  int64_t n_ktiles;     // ceil(Skv / kBwdKeys)
+  int heads;                   // H
+  int kv_heads;                // KV
+  int group;                   // G = H / KV
+  int cluster;                 // blocks of a KV head's cluster
+  int heads_per_block;         // G / cluster
+  int kv_hpt, kv_bq;           // dK/dV row tiles: heads x queries
+  int q_hpt, q_bq;             // dQ row tiles: heads x queries
+  int n_ktiles, n_qtiles;
+  // plan_bwd's tile table, int32, longest first: per dK/dV launch position
+  // (key tile, first query tile, query tiles), n_ktiles of them; then per
+  // dQ launch position (first query, first key tile, end key tile)
+  const int* tiles;
   int64_t sq, skv, kend;
   int causal;
-  int64_t window;       // <= 0: no window
-  float softcap;        // <= 0: no softcap
+  int64_t window;              // <= 0: no window
+  float softcap;               // <= 0: no softcap
   int64_t q_offset;
   float scale;
 };
 
-constexpr int kBwdWarps = 8;
-constexpr int kBwdThreads = 32 * kBwdWarps;
-constexpr int kBwdRows = 64;   // (head, query) rows per tile
-constexpr int kBwdKeys = 32;   // keys per tile
-constexpr int kLdp = kBwdKeys + 8;   // bf16 per row of P / dS: 16-byte pad
-
+// The per-head-dim shape of both kernels.
 template <int HD>
-struct BwdTile {
-  static constexpr int kLd = HD + 8;   // bf16 per shared row: 16-byte pad
-  // dK/dV: K, V; two stages of Q and dO rows; P and dS
-  static constexpr size_t kSmemKV =
-      sizeof(T) * (kLd * (2 * kBwdKeys + 4 * kBwdRows) + 2 * kBwdRows * kLdp);
-  // dQ: Q and dO rows; two stages of K and V; dS
-  static constexpr size_t kSmemQ =
-      sizeof(T) * (kLd * (2 * kBwdRows + 4 * kBwdKeys) + kBwdRows * kLdp);
+struct Cfg {
+  static constexpr int kWG = HD >= 128 ? 2 : 1;        // consumer warpgroups
+  static constexpr int kThreads = 128 * (kWG + 1);      // + the producer's
+  static constexpr int kCons = 128 * kWG;
+  static constexpr int kSpanCols = HD < 64 ? HD : 64;   // bf16 a swizzled row
+  static constexpr int kSpan = 2 * kSpanCols;           // bytes
+  static constexpr int kAtoms = HD / kSpanCols;
+  static constexpr int kLayout = HD >= 64 ? 1 : (HD == 32 ? 2 : 3);
+  static constexpr uint32_t kSbo = 8 * kSpan;           // 8-row core group
+  static constexpr uint32_t kAtomBytes = kTileRows * kSpan;
+  static constexpr uint32_t kTile = kAtoms * kAtomBytes;   // 64 rows x HD
+  // stages of the Q, dO ring (dK/dV) and of the K, V ring (dQ): four
+  // where shared memory holds them, so more copies are in flight
+  static constexpr int kStages = HD <= 128 ? 4 : 2;
+  static constexpr int kNS = kTileRows / kWG;   // score columns a warpgroup
+  static constexpr int kND = HD / kWG;          // output dims a warpgroup
+  static constexpr uint32_t kPS = kTileRows * 128;   // a 64 x 64 P or dS
+  // dK/dV: K, V, the stages of Q and dO, P^T, dS^T, then the stages of
+  // lse and Delta; the float32 dK, dV partials later reuse the front
+  static constexpr uint32_t kKvBytes = (2 + 2 * kStages) * kTile + 2 * kPS;
+  static constexpr uint32_t kPartPitch = HD + 8;   // floats a partial row
+  static_assert(2u * kTileRows * kPartPitch * 4 <= kKvBytes, "partials");
+  // dQ: Q, dO, the stages of K and V, dS
+  static constexpr uint32_t kQBytes = (2 + 2 * kStages) * kTile + kPS;
+  static constexpr size_t kSmemKv =
+      1024 + kKvBytes + 2 * 4 * kStages * kTileRows + 8 * (1 + 2 * kStages);
+  static constexpr size_t kSmemQ = 1024 + kQBytes + 8 * (1 + 2 * kStages);
 };
 
-// Delta_i = sum_d dO_i,d O_i,d: one warp per (batch, head, query) row.
-__global__ void __launch_bounds__(kBwdThreads) delta_kernel(BwdParams p,
-                                                            int hd) {
-  const int64_t row = (int64_t)blockIdx.x * kBwdWarps + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  const int64_t rows = (int64_t)p.batch * p.heads * p.sq;
-  if (row >= rows) return;
-  const int64_t i = row % p.sq;
-  const int64_t h = (row / p.sq) % p.heads;
-  const int64_t b = row / (p.sq * p.heads);
-  const T* orow = p.o + b * p.os[0] + h * p.os[1] + i * p.os[2];
-  const T* drow = p.dout + b * p.dos[0] + h * p.dos[1] + i * p.dos[2];
-  float sum = 0.f;
-  for (int c = lane; c < hd / 8; c += 32) {
-    const uint4 ov = *reinterpret_cast<const uint4*>(orow + 8 * c);
-    const uint4 dv = *reinterpret_cast<const uint4*>(drow + 8 * c);
-    const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
-    const __nv_bfloat162* d2 = reinterpret_cast<const __nv_bfloat162*>(&dv);
+__device__ inline unsigned char* align1024(unsigned char* p) {
+  const uint32_t a = smem_u32(p);
+  return p + (((a + 1023u) & ~1023u) - a);
+}
+
+// K-major descriptor of a tile: rows row0.., the reduction dim k16 step kk.
+template <int HD>
+__device__ inline uint64_t kmajor(const unsigned char* tile, int row0,
+                                  int kk) {
+  using C = Cfg<HD>;
+  const int col = 16 * kk;
+  const uint32_t a = smem_u32(tile) + (col / C::kSpanCols) * C::kAtomBytes +
+                     (col % C::kSpanCols) * 2 + row0 * C::kSpan;
+  return gmma_desc(a, 16, C::kSbo, C::kLayout);
+}
+
+// MN-major descriptor of a tile as B: its rows the reduction dim (k16 step
+// kk), columns col0.. (a multiple of the swizzle span) the N dim.
+template <int HD>
+__device__ inline uint64_t mnmajor(const unsigned char* tile, int col0,
+                                   int kk) {
+  using C = Cfg<HD>;
+  const uint32_t a = smem_u32(tile) + (col0 / C::kSpanCols) * C::kAtomBytes +
+                     16 * kk * C::kSpan;
+  return gmma_desc(a, C::kAtomBytes, C::kSbo, C::kLayout);
+}
+
+// K-major descriptor of a 64 x 64 P / dS tile (128-byte swizzle).
+__device__ inline uint64_t ps_desc(const unsigned char* tile, int kk) {
+  return gmma_desc(smem_u32(tile) + 32 * kk, 16, 1024, 1);
+}
+
+// Byte offset of element (m, k) in a 64 x 64 K-major 128-byte-swizzled tile.
+__device__ inline uint32_t ps_offset(int m, int k) {
+  return m * 128 + ((((k >> 3) ^ m) & 7) << 4) + (k & 7) * 2;
+}
+
+// Zeroes rows [rows, 64) of each atom of `n` consecutive tiles: rows no TMA
+// box writes (fewer packed rows than 64) must hold zeros, not stale data.
+template <int HD>
+__device__ inline void zero_tail_rows(unsigned char* tiles, int n, int rows) {
+  using C = Cfg<HD>;
+  if (rows >= kTileRows) return;
+  const int per_atom = (kTileRows - rows) * C::kSpan / 16;
+  const int total = n * C::kAtoms * per_atom;
+  for (int i = threadIdx.x; i < total; i += blockDim.x) {
+    const int atom = i / per_atom;
+    const int off = rows * C::kSpan + (i % per_atom) * 16;
+    *reinterpret_cast<uint4*>(tiles + atom * C::kAtomBytes + off) =
+        make_uint4(0, 0, 0, 0);
+  }
+  fence_proxy_async();
+}
+
+// TMA of one 64-row tile (all atoms along hd) of `map` at (q0, h0, b).
+template <int HD>
+__device__ inline void load_tile(unsigned char* dst, const CUtensorMap* map,
+                                 uint64_t* bar, int64_t pos0, int h0,
+                                 int64_t b) {
+  using C = Cfg<HD>;
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float2 of = __bfloat1622float2(o2[e]);
-      const float2 df = __bfloat1622float2(d2[e]);
-      sum += of.x * df.x + of.y * df.y;
+  for (int a = 0; a < C::kAtoms; ++a)
+    tma_load_4d(dst + a * C::kAtomBytes, map, bar, a * C::kSpanCols,
+                (int)pos0, h0, (int)b);
+}
+
+// The causal, window and kend mask of one 64-key x row tile, in int32
+// positions (queries and keys stay below 2^31). `full` when every pair of
+// the tile is visible and every row exists, so the elementwise pass skips
+// the per-element test.
+struct TileMask {
+  bool full;
+  int kend, causal, window;
+
+  __device__ TileMask(const BwdParams& p, int64_t key0, int64_t qmin,
+                      int64_t qmax, bool rows_exist)
+      : kend((int)p.kend), causal(p.causal), window((int)p.window) {
+    full = rows_exist && key0 + kTileRows <= p.kend &&
+           (!p.causal || key0 + kTileRows - 1 <= qmin) &&
+           (p.window <= 0 || key0 > qmax - p.window);
+  }
+
+  __device__ bool visible(int key, int qpos) const {
+    return key < kend && (!causal || key <= qpos) &&
+           (window <= 0 || key > qpos - window);
+  }
+};
+
+// The elementwise constants: P = exp2(s * c_s - lse2) without a softcap;
+// with one, th = tanh(s * c_t), P = exp2(th * c_s - lse2) and dS carries
+// scale (1 - th^2).
+struct Consts {
+  float c_s, c_t, scale;
+  bool cap;
+
+  __device__ explicit Consts(const BwdParams& p)
+      : c_s((p.softcap > 0.f ? p.softcap : p.scale) * kLog2e),
+        c_t(p.softcap > 0.f ? p.scale / p.softcap : 0.f),
+        scale(p.scale),
+        cap(p.softcap > 0.f) {}
+
+  // P of score s (lse2 in log2 units); *g gets dS's factor
+  __device__ float prob(float s, float lse2, float* g) const {
+    if (cap) {
+      const float th = tanhf(s * c_t);
+      *g = scale * (1.f - th * th);
+      return exp2f(th * c_s - lse2);
+    }
+    *g = scale;
+    return exp2f(s * c_s - lse2);
+  }
+};
+
+// Delta_i = sum_d dO_i,d O_i,d per (batch, head, query) row: HD / 8 lanes
+// a row (at most 32), each summing 16-byte chunks, then a shuffle tree
+// inside the row's lanes; 32 / (HD / 8) rows a warp below hd 256.
+template <int HD>
+__global__ void __launch_bounds__(256) delta_kernel(BwdParams p) {
+  constexpr int chunks = HD / 8;
+  constexpr int per_row = chunks < 32 ? chunks : 32;
+  const int lane = threadIdx.x & 31;
+  const int64_t row =
+      ((int64_t)blockIdx.x * 8 + (threadIdx.x >> 5)) * (32 / per_row) +
+      lane / per_row;
+  const int64_t rows = (int64_t)p.batch * p.heads * p.sq;
+  float sum = 0.f;
+  if (row < rows) {
+    const int64_t i = row % p.sq;
+    const int64_t h = (row / p.sq) % p.heads;
+    const int64_t b = row / (p.sq * p.heads);
+    const T* orow = p.o + b * p.os[0] + h * p.os[1] + i * p.os[2];
+    const T* drow = p.dout + b * p.dos[0] + h * p.dos[1] + i * p.dos[2];
+    for (int c = lane % per_row; c < chunks; c += per_row) {
+      const uint4 ov = *reinterpret_cast<const uint4*>(orow + 8 * c);
+      const uint4 dv = *reinterpret_cast<const uint4*>(drow + 8 * c);
+      const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
+      const __nv_bfloat162* d2 = reinterpret_cast<const __nv_bfloat162*>(&dv);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 of = __bfloat1622float2(o2[e]);
+        const float2 df = __bfloat1622float2(d2[e]);
+        sum += of.x * df.x + of.y * df.y;
+      }
     }
   }
-  sum = warp_sum(sum);
-  if (lane == 0) p.delta[row] = sum;
+#pragma unroll
+  for (int o = per_row / 2; o > 0; o >>= 1)
+    sum += __shfl_xor_sync(0xffffffffu, sum, o);
+  if (row < rows && lane % per_row == 0) p.delta[row] = sum;
 }
 
-// One row tile: hpb heads from h0, block_q queries from q0, packed
-// r -> (head h0 + r / block_q, query q0 + r % block_q).
-struct RowTile {
-  int64_t b;
-  int h0;
-  int64_t q0;
-};
+// mbarriers of dkdv_kernel: K and V landed; stage s of Q, dO (with its lse
+// and Delta) full at kQFull + s, free at kQFull + kStages + s
+enum { kKvFull = 0, kQFull = 1 };
 
-// Copies the tile's Q and dO rows to shared memory; rows past the tile are
-// zero.
 template <int HD>
-__device__ inline void load_rows(const BwdParams& p, const RowTile& t, T* sQ,
-                                 T* sdO) {
-  constexpr int LD = BwdTile<HD>::kLd;
-  constexpr int kChunks = HD / 8;
-  const int rows = p.heads_per_block * p.block_q;
-  for (int c = threadIdx.x; c < kBwdRows * kChunks; c += kBwdThreads) {
-    const int r = c / kChunks;
-    const int d0 = (c % kChunks) * 8;
-    const int64_t qi = t.q0 + r % p.block_q;
-    const bool ok = r < rows && qi < p.sq;
-    const int64_t h = t.h0 + r / p.block_q;
-    cp_async16(sQ + r * LD + d0,
-               ok ? p.q + t.b * p.qs[0] + h * p.qs[1] + qi * p.qs[2] + d0 : p.q,
-               ok);
-    cp_async16(sdO + r * LD + d0,
-               ok ? p.dout + t.b * p.dos[0] + h * p.dos[1] + qi * p.dos[2] + d0
-                  : p.dout,
-               ok);
+__global__ void __launch_bounds__(Cfg<HD>::kThreads, 1)
+    dkdv_kernel(const __grid_constant__ BwdParams p) {
+  using C = Cfg<HD>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  unsigned char* sK = smem;
+  unsigned char* sV = sK + C::kTile;
+  unsigned char* sQ = sV + C::kTile;                 // kStages stages
+  unsigned char* sdO = sQ + C::kStages * C::kTile;   // kStages stages
+  unsigned char* sPt = sdO + C::kStages * C::kTile;
+  unsigned char* sdSt = sPt + C::kPS;
+  float* sLse = reinterpret_cast<float*>(smem + C::kKvBytes);  // [kStages][64]
+  float* sDelta = sLse + C::kStages * kTileRows;                // [kStages][64]
+  uint64_t* bars =
+      reinterpret_cast<uint64_t*>(sDelta + C::kStages * kTileRows);
+  uint64_t* q_empty = bars + kQFull + C::kStages;
+
+  // block -> (batch, KV head, rank, launch position); the table gives the
+  // position's key tile and the query tiles that can see it
+  const int rank = (int)(blockIdx.x % p.cluster);
+  int64_t bid = blockIdx.x / p.cluster;
+  const int kvh = (int)(bid % p.kv_heads);
+  bid /= p.kv_heads;
+  const int64_t b = bid % p.batch;
+  const int* entry = p.tiles + 3 * (bid / p.batch);
+  const int64_t key0 = (int64_t)entry[0] * kTileRows;
+  const int64_t qt_lo = entry[1];
+  const int64_t nq = entry[2];
+  const int n_tiles = (int)(nq * (p.heads_per_block / p.kv_hpt));
+  const int h_first = kvh * p.group + rank * p.heads_per_block;
+  const int rows = p.kv_hpt * p.kv_bq;
+
+  if (threadIdx.x == 0) {
+    mbar_init(&bars[kKvFull], 1);
+    for (int s = 0; s < C::kStages; ++s) {
+      mbar_init(&bars[kQFull + s], 33);   // the copies' + 32 lanes'
+      mbar_init(&q_empty[s], C::kCons / 32);
+    }
+    mbar_init_fence();
   }
-}
+  zero_tail_rows<HD>(sQ, 2 * C::kStages, rows);   // every stage of Q, dO
+  __syncthreads();
 
-// Copies keys [key0, key0 + kBwdKeys) of K and V; keys past kend are zero.
-template <int HD>
-__device__ inline void load_keys(const BwdParams& p, int64_t b, int64_t kvh,
-                                 int64_t key0, T* sK, T* sV) {
-  constexpr int LD = BwdTile<HD>::kLd;
-  constexpr int kChunks = HD / 8;
-  const T* kb = p.k + b * p.ks[0] + kvh * p.ks[1];
-  const T* vb = p.v + b * p.vs[0] + kvh * p.vs[1];
-  for (int c = threadIdx.x; c < kBwdKeys * kChunks; c += kBwdThreads) {
-    const int j = c / kChunks;
-    const int d0 = (c % kChunks) * 8;
-    const int64_t key = key0 + j;
-    const bool ok = key < p.kend;
-    cp_async16(sK + j * LD + d0, ok ? kb + key * p.ks[2] + d0 : p.k, ok);
-    cp_async16(sV + j * LD + d0, ok ? vb + key * p.vs[2] + d0 : p.v, ok);
-  }
-}
-
-// S = Q K^T and dP = dO V^T for the 64 x 32 tile, warp w taking rows
-// 16 (w % 4).. and keys 16 (w / 4)..; then P and dS (see the head comment)
-// go to shared memory in bf16, row-major (row, key). sP may be null.
-template <int HD>
-__device__ inline void score_tile(const BwdParams& p, const RowTile& t,
-                                  int64_t key0, const T* sQ, const T* sdO,
-                                  const T* sK, const T* sV, T* sP, T* sdS) {
-  constexpr int LD = BwdTile<HD>::kLd;
   const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int rg = warp & 3;
-  const int kg = warp >> 2;
-  float s[2][4], dp[2][4];
+  if (threadIdx.x >= C::kCons) {
+    // ---- producer warpgroup: its first warp feeds the ring ----
+    if constexpr (C::kWG == 2) reg_dealloc<40>();
+    if (threadIdx.x < C::kCons + 32) {
+      if (n_tiles > 0 && lane == 0) {
+        mbar_arrive_tx(&bars[kKvFull], 2 * C::kTile);
+        load_tile<HD>(sK, &p.tk, &bars[kKvFull], key0, kvh, b);
+        load_tile<HD>(sV, &p.tv, &bars[kKvFull], key0, kvh, b);
+      }
+      const uint32_t bytes = 2u * 2u * HD * rows;
+      for (int t = 0; t < n_tiles; ++t) {
+        const int s = t % C::kStages;
+        if (t >= C::kStages)
+          mbar_wait(&q_empty[s], (t / C::kStages - 1) & 1);
+        const int h0 = h_first + (int)(t / nq) * p.kv_hpt;
+        const int64_t q0 = (qt_lo + t % nq) * p.kv_bq;
+        if (lane == 0) {   // the copies first, then this tile's lse, Delta
+          mbar_arrive_tx(&bars[kQFull + s], bytes);
+          load_tile<HD>(sQ + s * C::kTile, &p.tq_kv, &bars[kQFull + s], q0,
+                        h0, b);
+          load_tile<HD>(sdO + s * C::kTile, &p.tdo_kv, &bars[kQFull + s], q0,
+                        h0, b);
+        }
+        for (int r = lane; r < kTileRows; r += 32) {
+          const int64_t qi = q0 + r % p.kv_bq;
+          float l2 = 0.f, d = 0.f;
+          if (r < rows && qi < p.sq) {
+            const int64_t idx = (b * p.heads + h0 + r / p.kv_bq) * p.sq + qi;
+            l2 = p.lse[idx] * kLog2e;
+            d = p.delta[idx];
+          }
+          sLse[s * kTileRows + r] = l2;
+          sDelta[s * kTileRows + r] = d;
+        }
+        mbar_arrive(&bars[kQFull + s]);
+      }
+      __syncwarp();
+    }
+    cluster_sync();   // the partials are in shared memory
+    cluster_sync();   // every block has read them
+  } else {
+    // ---- consumer warpgroups ----
+    if constexpr (C::kWG == 2) reg_alloc<232>();
+    const int wg = threadIdx.x / 128;
+    const int wi = (threadIdx.x / 32) & 3;
+    const int g = lane >> 2;
+    const int tq = lane & 3;
+    float dv[C::kND / 2], dk[C::kND / 2];
 #pragma unroll
-  for (int j = 0; j < 2; ++j)
+    for (int i = 0; i < C::kND / 2; ++i) dv[i] = dk[i] = 0.f;
+    if (n_tiles > 0) mbar_wait(&bars[kKvFull], 0);
+
+    const Consts cst(p);
+    for (int t = 0; t < n_tiles; ++t) {
+      const int s = t % C::kStages;
+      mbar_wait(&bars[kQFull + s], (t / C::kStages) & 1);
+      const unsigned char* tQ = sQ + s * C::kTile;
+      const unsigned char* tdO = sdO + s * C::kTile;
+      // S^T = K Q^T and dP^T = V dO^T: 64 keys x this warpgroup's rows,
+      // two groups, so P is computed while dP^T is still in flight
+      float st[C::kNS / 2], dpt[C::kNS / 2], gs[C::kNS / 2];
+      fence_regs(st);
+      fence_regs(dpt);
+      wgmma_fence();
 #pragma unroll
-    for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-#pragma unroll 4
-  for (int kk = 0; kk < HD / 16; ++kk) {
-    const int a_off = (16 * rg + (lane & 15)) * LD + kk * 16 + (lane >> 4) * 8;
-    const int b_off = (16 * kg + (lane & 7) + (lane >> 4) * 8) * LD + kk * 16 +
-                      ((lane >> 3) & 1) * 8;
-    uint32_t a[4], b[4];
-    ldsm_x4(a, sQ + a_off);
-    ldsm_x4(b, sK + b_off);
-    mma_bf16(s[0], a, b[0], b[1]);
-    mma_bf16(s[1], a, b[2], b[3]);
-    ldsm_x4(a, sdO + a_off);
-    ldsm_x4(b, sV + b_off);
-    mma_bf16(dp[0], a, b[0], b[1]);
-    mma_bf16(dp[1], a, b[2], b[3]);
+      for (int kk = 0; kk < HD / 16; ++kk)
+        wgmma_bf16<C::kNS, 0>(st, kmajor<HD>(sK, 0, kk),
+                              kmajor<HD>(tQ, wg * C::kNS, kk), kk > 0);
+      wgmma_commit();
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk)
+        wgmma_bf16<C::kNS, 0>(dpt, kmajor<HD>(sV, 0, kk),
+                              kmajor<HD>(tdO, wg * C::kNS, kk), kk > 0);
+      wgmma_commit();
+      wgmma_wait<1>();
+      fence_regs(st);
+
+      const int64_t q0 = (qt_lo + t % nq) * p.kv_bq;
+      const int64_t q_end = q0 + p.kv_bq < p.sq ? q0 + p.kv_bq : p.sq;
+      const TileMask mask(p, key0, p.q_offset + q0, p.q_offset + q_end - 1,
+                          rows == kTileRows && q0 + p.kv_bq <= p.sq);
+      const int key_a = (int)key0 + 16 * wi + g;
+      const float* lse = sLse + s * kTileRows + wg * C::kNS;
+#pragma unroll
+      for (int j = 0; j < C::kNS / 8; ++j) {
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int r = 8 * j + 2 * tq + c;   // of this warpgroup's rows
+          const float lse2 = lse[r];
+          int qpos = 0;
+          bool ok = true;
+          if (!mask.full) {
+            const int rr = wg * C::kNS + r;
+            const int qi = (int)q0 + rr % p.kv_bq;
+            ok = rr < rows && qi < p.sq;
+            qpos = (int)p.q_offset + qi;
+          }
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            const int e = 4 * j + 2 * half + c;
+            const float pr = cst.prob(st[e], lse2, &gs[e]);
+            st[e] = mask.full || (ok && mask.visible(key_a + 8 * half, qpos))
+                        ? pr
+                        : 0.f;
+          }
+        }
+      }
+      named_barrier(1, C::kCons);   // the last tile's P^T, dS^T are read
+#pragma unroll
+      for (int j = 0; j < C::kNS / 8; ++j)
+#pragma unroll
+        for (int half = 0; half < 2; ++half)
+          *reinterpret_cast<__nv_bfloat162*>(
+              sPt + ps_offset(16 * wi + g + 8 * half,
+                              wg * C::kNS + 8 * j + 2 * tq)) =
+              __floats2bfloat162_rn(st[4 * j + 2 * half],
+                                    st[4 * j + 2 * half + 1]);
+      fence_proxy_async();
+      named_barrier(1, C::kCons);   // P^T complete
+      // dV += P^T dO on this warpgroup's dims, in flight during dS
+      fence_regs(dv);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kTileRows / 16; ++kk)
+        wgmma_bf16<C::kND, 1>(dv, ps_desc(sPt, kk),
+                              mnmajor<HD>(tdO, wg * C::kND, kk), 1);
+      wgmma_commit();
+      wgmma_wait<1>();   // dP^T has landed
+      fence_regs(dpt);
+      const float* dlt = sDelta + s * kTileRows + wg * C::kNS;
+#pragma unroll
+      for (int j = 0; j < C::kNS / 8; ++j) {
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const float delta = dlt[8 * j + 2 * tq + c];
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            const int e = 4 * j + 2 * half + c;
+            dpt[e] = st[e] * (dpt[e] - delta) * gs[e];
+          }
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < C::kNS / 8; ++j)
+#pragma unroll
+        for (int half = 0; half < 2; ++half)
+          *reinterpret_cast<__nv_bfloat162*>(
+              sdSt + ps_offset(16 * wi + g + 8 * half,
+                               wg * C::kNS + 8 * j + 2 * tq)) =
+              __floats2bfloat162_rn(dpt[4 * j + 2 * half],
+                                    dpt[4 * j + 2 * half + 1]);
+      fence_proxy_async();
+      named_barrier(1, C::kCons);   // dS^T complete
+      // dK += dS^T Q on this warpgroup's dims
+      fence_regs(dk);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kTileRows / 16; ++kk)
+        wgmma_bf16<C::kND, 1>(dk, ps_desc(sdSt, kk),
+                              mnmajor<HD>(tQ, wg * C::kND, kk), 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dv);
+      fence_regs(dk);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&q_empty[s]);
+    }
+
+    // the block's float32 dK, dV (keys x dims) into shared memory
+    named_barrier(1, C::kCons);   // every consumer is done with the tiles
+    float* part = reinterpret_cast<float*>(smem);   // [2][64][kPartPitch]
+#pragma unroll
+    for (int i = 0; i < C::kND / 8; ++i) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int m = 16 * wi + g + 8 * half;
+        const int d = wg * C::kND + 8 * i + 2 * tq;
+        *reinterpret_cast<float2*>(part + m * C::kPartPitch + d) =
+            make_float2(dk[4 * i + 2 * half], dk[4 * i + 2 * half + 1]);
+        *reinterpret_cast<float2*>(part + (kTileRows + m) * C::kPartPitch +
+                                   d) =
+            make_float2(dv[4 * i + 2 * half], dv[4 * i + 2 * half + 1]);
+      }
+    }
+    cluster_sync();
+    // this rank's slice of the cluster's sum, heads in ascending order;
+    // four chunks a round, so that their remote loads overlap
+    constexpr int kChunks = HD / 4;   // float4 chunks a row
+    constexpr int kTotal = 2 * kTileRows * kChunks;
+    const uint32_t base = smem_u32(part);
+    const int step = p.cluster * C::kCons;
+    for (int idx0 = rank * C::kCons + threadIdx.x; idx0 < kTotal;
+         idx0 += 4 * step) {
+      float4 sum[4];
+      uint32_t off[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int idx = idx0 + u * step < kTotal ? idx0 + u * step : idx0;
+        off[u] = base + 4u * ((idx / kChunks) * C::kPartPitch +
+                              (idx % kChunks) * 4);
+        sum[u] = ld_cluster_f4(cluster_map(off[u], 0));
+      }
+      for (int r = 1; r < p.cluster; ++r) {
+        float4 v[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) v[u] = ld_cluster_f4(cluster_map(off[u], r));
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          sum[u].x += v[u].x;
+          sum[u].y += v[u].y;
+          sum[u].z += v[u].z;
+          sum[u].w += v[u].w;
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int idx = idx0 + u * step;
+        if (idx >= kTotal) continue;
+        const int mat = idx / (kTileRows * kChunks);
+        const int m = (idx / kChunks) % kTileRows;
+        const int d = (idx % kChunks) * 4;
+        const int64_t key = key0 + m;
+        if (key >= p.skv) continue;
+        T* row = mat == 0
+                     ? p.dk + b * p.dks[0] + kvh * p.dks[1] + key * p.dks[2]
+                     : p.dv + b * p.dvs[0] + kvh * p.dvs[1] + key * p.dvs[2];
+        *reinterpret_cast<uint2*>(row + d) =
+            make_uint2(bf16x2_bits(__floats2bfloat162_rn(sum[u].x, sum[u].y)),
+                       bf16x2_bits(__floats2bfloat162_rn(sum[u].z, sum[u].w)));
+      }
+    }
+    cluster_sync();
+  }
+}
+
+// mbarriers of dq_kernel: Q and dO landed; stage s of K, V full at
+// kKFull + s, free at kKFull + kStages + s
+enum { kRowsFull = 0, kKFull = 1 };
+
+template <int HD>
+__global__ void __launch_bounds__(Cfg<HD>::kThreads, 1)
+    dq_kernel(const __grid_constant__ BwdParams p) {
+  using C = Cfg<HD>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  unsigned char* sQ = smem;
+  unsigned char* sdO = sQ + C::kTile;
+  unsigned char* sK = sdO + C::kTile;   // kStages stages
+  unsigned char* sV = sK + C::kStages * C::kTile;
+  unsigned char* sdS = sV + C::kStages * C::kTile;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + C::kQBytes);
+  uint64_t* k_empty = bars + kKFull + C::kStages;
+
+  // block -> (batch, head group, launch position); the table gives the
+  // position's row tile and the key tiles its rows can see
+  int64_t bid = blockIdx.x;
+  const int64_t b = bid % p.batch;
+  bid /= p.batch;
+  const int n_groups = p.heads / p.q_hpt;
+  const int h0 = (int)(bid % n_groups) * p.q_hpt;
+  const int* entry = p.tiles + 3 * (p.n_ktiles + bid / n_groups);
+  const int64_t q0 = entry[0];
+  const int t_lo = entry[1];
+  const int t_hi = entry[2];
+  const int kvh = h0 / p.group;
+  const int rows = p.q_hpt * p.q_bq;
+  const int64_t last_q = (q0 + p.q_bq < p.sq ? q0 + p.q_bq : p.sq) - 1;
+
+  if (threadIdx.x == 0) {
+    mbar_init(&bars[kRowsFull], 1);
+    for (int s = 0; s < C::kStages; ++s) {
+      mbar_init(&bars[kKFull + s], 1);
+      mbar_init(&k_empty[s], C::kCons / 32);
+    }
+    mbar_init_fence();
+  }
+  zero_tail_rows<HD>(sQ, 2, rows);   // Q and dO
+  __syncthreads();
+
+  const int lane = threadIdx.x & 31;
+  if (threadIdx.x >= C::kCons) {
+    // ---- producer: one thread issues every copy ----
+    if (threadIdx.x != C::kCons || t_lo >= t_hi) return;
+    mbar_arrive_tx(&bars[kRowsFull], 2u * 2u * HD * rows);
+    load_tile<HD>(sQ, &p.tq_q, &bars[kRowsFull], q0, h0, b);
+    load_tile<HD>(sdO, &p.tdo_q, &bars[kRowsFull], q0, h0, b);
+    for (int t = t_lo; t < t_hi; ++t) {
+      const int i = t - t_lo;
+      const int s = i % C::kStages;
+      if (i >= C::kStages) mbar_wait(&k_empty[s], (i / C::kStages - 1) & 1);
+      mbar_arrive_tx(&bars[kKFull + s], 2 * C::kTile);
+      load_tile<HD>(sK + s * C::kTile, &p.tk, &bars[kKFull + s],
+                    (int64_t)t * kTileRows, kvh, b);
+      load_tile<HD>(sV + s * C::kTile, &p.tv, &bars[kKFull + s],
+                    (int64_t)t * kTileRows, kvh, b);
+    }
+    return;
   }
 
+  // ---- consumer warpgroups: rows 16 wi + g and + 8 of the 64 ----
+  const int wg = threadIdx.x / 128;
+  const int wi = (threadIdx.x / 32) & 3;
   const int g = lane >> 2;
   const int tq = lane & 3;
-  const int rows = p.heads_per_block * p.block_q;
-  int r[2];
-  int64_t qpos[2];
+  int qpos[2];
   float lse2[2], delta[2];
   bool valid[2];
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    r[i] = 16 * rg + g + 8 * i;
-    const int64_t qi = t.q0 + r[i] % p.block_q;
-    valid[i] = r[i] < rows && qi < p.sq;
-    qpos[i] = p.q_offset + qi;
-    lse2[i] = 0.f;
-    delta[i] = 0.f;
-    if (valid[i]) {
-      const int64_t idx = (t.b * p.heads + t.h0 + r[i] / p.block_q) * p.sq + qi;
-      lse2[i] = p.lse[idx] * kLog2e;
-      delta[i] = p.delta[idx];
+  for (int half = 0; half < 2; ++half) {
+    const int r = 16 * wi + g + 8 * half;
+    const int64_t qi = q0 + r % p.q_bq;
+    valid[half] = r < rows && qi < p.sq;
+    qpos[half] = (int)(p.q_offset + qi);
+    lse2[half] = delta[half] = 0.f;
+    if (valid[half]) {
+      const int64_t idx = (b * p.heads + h0 + r / p.q_bq) * p.sq + qi;
+      lse2[half] = p.lse[idx] * kLog2e;
+      delta[half] = p.delta[idx];
     }
   }
-  const float cap_in = p.softcap > 0.f ? p.scale / p.softcap : 0.f;
+  const Consts cst(p);
+  const bool rows_exist = rows == kTileRows && q0 + p.q_bq <= p.sq;
+  float acc[C::kND / 2];
 #pragma unroll
-  for (int j = 0; j < 2; ++j) {
+  for (int i = 0; i < C::kND / 2; ++i) acc[i] = 0.f;
+  if (t_lo < t_hi) mbar_wait(&bars[kRowsFull], 0);
+
+  for (int t = t_lo; t < t_hi; ++t) {
+    const int i = t - t_lo;
+    const int s = i % C::kStages;
+    mbar_wait(&bars[kKFull + s], (i / C::kStages) & 1);
+    const unsigned char* tK = sK + s * C::kTile;
+    const unsigned char* tV = sV + s * C::kTile;
+    // S = Q K^T and dP = dO V^T: 64 rows x this warpgroup's keys
+    float sc[C::kNS / 2], dp[C::kNS / 2], gs[C::kNS / 2];
+    fence_regs(sc);
+    fence_regs(dp);
+    wgmma_fence();
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      float pv[2], dsv[2];
+    for (int kk = 0; kk < HD / 16; ++kk)
+      wgmma_bf16<C::kNS, 0>(sc, kmajor<HD>(sQ, 0, kk),
+                            kmajor<HD>(tK, wg * C::kNS, kk), kk > 0);
+    wgmma_commit();
 #pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        const int e = 2 * half + c;
-        const int64_t key = key0 + 16 * kg + 8 * j + 2 * tq + c;
-        const int64_t qp = qpos[half];
-        const bool ok = valid[half] && key < p.kend &&
-                        (!p.causal || key <= qp) &&
-                        (p.window <= 0 || key > qp - p.window);
-        float x, grad = p.scale;
-        if (p.softcap > 0.f) {
-          const float th = tanhf(s[j][e] * cap_in);
-          x = p.softcap * th;
-          grad *= 1.f - th * th;
-        } else {
-          x = s[j][e] * p.scale;
+    for (int kk = 0; kk < HD / 16; ++kk)
+      wgmma_bf16<C::kNS, 0>(dp, kmajor<HD>(sdO, 0, kk),
+                            kmajor<HD>(tV, wg * C::kNS, kk), kk > 0);
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_regs(sc);
+
+    // P while dP is in flight
+    const int64_t key0 = (int64_t)t * kTileRows;
+    const TileMask mask(p, key0, p.q_offset + q0, p.q_offset + last_q,
+                        rows_exist);
+    const int key_w = (int)key0 + wg * C::kNS + 2 * tq;
+#pragma unroll
+    for (int j = 0; j < C::kNS / 8; ++j)
+#pragma unroll
+      for (int half = 0; half < 2; ++half)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int e = 4 * j + 2 * half + c;
+          const float pr = cst.prob(sc[e], lse2[half], &gs[e]);
+          sc[e] = mask.full || (valid[half] &&
+                                mask.visible(key_w + 8 * j + c, qpos[half]))
+                      ? pr
+                      : 0.f;
         }
-        const float pr = ok ? exp2f(x * kLog2e - lse2[half]) : 0.f;
-        pv[c] = pr;
-        dsv[c] = pr * (dp[j][e] - delta[half]) * grad;
-      }
-      const int off = r[half] * kLdp + 16 * kg + 8 * j + 2 * tq;
-      if (sP != nullptr)
-        *reinterpret_cast<__nv_bfloat162*>(sP + off) =
-            __floats2bfloat162_rn(pv[0], pv[1]);
-      *reinterpret_cast<__nv_bfloat162*>(sdS + off) =
-          __floats2bfloat162_rn(dsv[0], dsv[1]);
-    }
-  }
-}
-
-// The query rows [lo, hi) that can see some key of [k0, k1).
-__device__ inline void query_bounds(const BwdParams& p, int64_t k0, int64_t k1,
-                                    int64_t* lo, int64_t* hi) {
-  *lo = 0;
-  *hi = p.sq;
-  if (k1 <= k0) {
-    *hi = 0;
-    return;
-  }
-  if (p.causal) {
-    const int64_t c = k0 - p.q_offset;
-    *lo = c > 0 ? c : 0;
-  }
-  if (p.window > 0) {
-    const int64_t w = k1 - 1 + p.window - p.q_offset;
-    *hi = w < *hi ? w : *hi;
-  }
-  if (*hi < *lo) *hi = *lo;
-}
-
-template <int HD>
-__global__ void __launch_bounds__(kBwdThreads, 1) dkdv_kernel(BwdParams p) {
-  constexpr int LD = BwdTile<HD>::kLd;
-  constexpr int kCG = HD >= 64 ? 4 : HD / 16;   // column groups of dK, dV
-  constexpr int CW = HD / kCG;                  // dims per warp, 16 | CW
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* sK = reinterpret_cast<T*>(smem_raw);      // kBwdKeys x LD
-  T* sV = sK + kBwdKeys * LD;
-  T* sQ = sV + kBwdKeys * LD;                  // 2 stages x kBwdRows x LD
-  T* sdO = sQ + 2 * kBwdRows * LD;
-  T* sP = sdO + 2 * kBwdRows * LD;             // kBwdRows x kLdp
-  T* sdS = sP + kBwdRows * kLdp;
-
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  // key tile 0 first: under the causal mask it sees the most queries
-  int64_t bid = blockIdx.x;
-  const int64_t b = bid % p.batch;
-  bid /= p.batch;
-  const int64_t kvh = bid % p.kv_heads;
-  const int64_t kt = bid / p.kv_heads;
-  const int64_t key0 = kt * kBwdKeys;
-  const int64_t key1 = key0 + kBwdKeys < p.kend ? key0 + kBwdKeys : p.kend;
-
-  load_keys<HD>(p, b, kvh, key0, sK, sV);
-  cp_async_commit();
-  int64_t i_lo, i_hi;
-  query_bounds(p, key0, key1, &i_lo, &i_hi);
-  const int64_t qt_lo = i_lo / p.block_q;
-  const int64_t nq = i_hi > i_lo ? (i_hi + p.block_q - 1) / p.block_q - qt_lo : 0;
-  const int64_t n_tiles = nq * p.n_hblocks;
-  auto tile = [&](int64_t t) {
-    RowTile rt;
-    rt.b = b;
-    rt.h0 = (int)(kvh * p.group + (t / nq) * p.heads_per_block);
-    rt.q0 = (qt_lo + t % nq) * p.block_q;
-    return rt;
-  };
-  if (n_tiles > 0) load_rows<HD>(p, tile(0), sQ, sdO);
-  cp_async_commit();
-
-  const int kgp = warp & 1;
-  const int cg = warp >> 1;
-  float dv[CW / 8][4], dk[CW / 8][4];
+    wgmma_wait<0>();
+    fence_regs(dp);
+    named_barrier(1, C::kCons);   // the last tile's dS is read
 #pragma unroll
-  for (int j = 0; j < CW / 8; ++j)
+    for (int j = 0; j < C::kNS / 8; ++j) {
 #pragma unroll
-    for (int e = 0; e < 4; ++e) dv[j][e] = dk[j][e] = 0.f;
-
-  for (int64_t t = 0; t < n_tiles; ++t) {
-    const int stage = (int)(t & 1);
-    if (t + 1 < n_tiles)
-      load_rows<HD>(p, tile(t + 1), sQ + (stage ^ 1) * kBwdRows * LD,
-                    sdO + (stage ^ 1) * kBwdRows * LD);
-    cp_async_commit();
-    cp_async_wait<1>();  // K, V and row tile t have landed
-    __syncthreads();
-    const T* tQ = sQ + stage * kBwdRows * LD;
-    const T* tdO = sdO + stage * kBwdRows * LD;
-    score_tile<HD>(p, tile(t), key0, tQ, tdO, sK, sV, sP, sdS);
-    __syncthreads();
-    if (cg < kCG) {
+      for (int half = 0; half < 2; ++half) {
+        float ds[2];
 #pragma unroll
-      for (int ks = 0; ks < kBwdRows / 16; ++ks) {
-        // A = P^T and dS^T (16 keys x 16 rows), read transposed
-        const int a_off = (16 * ks + (lane & 7) + ((lane >> 4) & 1) * 8) * kLdp +
-                          16 * kgp + ((lane >> 3) & 1) * 8;
-        uint32_t ap[4], ad[4];
-        ldsm_x4_trans(ap, sP + a_off);
-        ldsm_x4_trans(ad, sdS + a_off);
-#pragma unroll
-        for (int dp2 = 0; dp2 < CW / 16; ++dp2) {
-          // B = dO and Q rows (16 rows x 16 dims), read transposed
-          const int b_off = (16 * ks + (lane & 7) + ((lane >> 3) & 1) * 8) * LD +
-                            cg * CW + dp2 * 16 + (lane >> 4) * 8;
-          uint32_t bb[4];
-          ldsm_x4_trans(bb, tdO + b_off);
-          mma_bf16(dv[2 * dp2], ap, bb[0], bb[1]);
-          mma_bf16(dv[2 * dp2 + 1], ap, bb[2], bb[3]);
-          ldsm_x4_trans(bb, tQ + b_off);
-          mma_bf16(dk[2 * dp2], ad, bb[0], bb[1]);
-          mma_bf16(dk[2 * dp2 + 1], ad, bb[2], bb[3]);
+        for (int c = 0; c < 2; ++c) {
+          const int e = 4 * j + 2 * half + c;
+          ds[c] = sc[e] * (dp[e] - delta[half]) * gs[e];
         }
+        *reinterpret_cast<__nv_bfloat162*>(
+            sdS + ps_offset(16 * wi + g + 8 * half,
+                            wg * C::kNS + 8 * j + 2 * tq)) =
+            __floats2bfloat162_rn(ds[0], ds[1]);
       }
     }
-    __syncthreads();  // the stage, P and dS are free
+    fence_proxy_async();
+    named_barrier(1, C::kCons);   // dS complete
+    // dQ += dS K on this warpgroup's dims
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kTileRows / 16; ++kk)
+      wgmma_bf16<C::kND, 1>(acc, ps_desc(sdS, kk),
+                            mnmajor<HD>(tK, wg * C::kND, kk), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&k_empty[s]);
   }
-  cp_async_wait<0>();
 
-  // every key of [0, Skv) gets its row: zero past kend or unseen
-  if (cg >= kCG) return;
-  const int g = lane >> 2;
-  const int tq = lane & 3;
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
-    const int64_t key = key0 + 16 * kgp + g + 8 * half;
-    if (key >= p.skv) continue;
-    T* dkrow = p.dk + b * p.dks[0] + kvh * p.dks[1] + key * p.dks[2] + cg * CW;
-    T* dvrow = p.dv + b * p.dvs[0] + kvh * p.dvs[1] + key * p.dvs[2] + cg * CW;
+    if (!valid[half]) continue;
+    const int r = 16 * wi + g + 8 * half;
+    const int64_t qi = q0 + r % p.q_bq;
+    const int64_t h = h0 + r / p.q_bq;
+    T* row = p.dq + b * p.dqs[0] + h * p.dqs[1] + qi * p.dqs[2] +
+             wg * C::kND;
 #pragma unroll
-    for (int j = 0; j < CW / 8; ++j) {
-      *reinterpret_cast<__nv_bfloat162*>(dkrow + 8 * j + 2 * tq) =
-          __floats2bfloat162_rn(dk[j][2 * half], dk[j][2 * half + 1]);
-      *reinterpret_cast<__nv_bfloat162*>(dvrow + 8 * j + 2 * tq) =
-          __floats2bfloat162_rn(dv[j][2 * half], dv[j][2 * half + 1]);
-    }
-  }
-}
-
-template <int HD>
-__global__ void __launch_bounds__(kBwdThreads, 1) dq_kernel(BwdParams p) {
-  constexpr int LD = BwdTile<HD>::kLd;
-  constexpr int kCG = HD >= 32 ? 2 : 1;   // column groups of dQ
-  constexpr int CW = HD / kCG;            // dims per warp, 16 | CW
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* sQ = reinterpret_cast<T*>(smem_raw);  // kBwdRows x LD
-  T* sdO = sQ + kBwdRows * LD;
-  T* sK = sdO + kBwdRows * LD;             // 2 stages x kBwdKeys x LD
-  T* sV = sK + 2 * kBwdKeys * LD;
-  T* sdS = sV + 2 * kBwdKeys * LD;         // kBwdRows x kLdp
-
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  // the last query tile first: under the causal mask it sees the most keys
-  int64_t bid = blockIdx.x;
-  const int64_t b = bid % p.batch;
-  bid /= p.batch;
-  const int n_groups = p.heads / p.heads_per_block;
-  const int grp = (int)(bid % n_groups);
-  bid /= n_groups;
-  RowTile rt;
-  rt.b = b;
-  rt.h0 = grp * p.heads_per_block;
-  rt.q0 = (p.n_qtiles - 1 - bid) * p.block_q;
-  const int64_t kvh = rt.h0 / p.group;
-
-  load_rows<HD>(p, rt, sQ, sdO);
-  cp_async_commit();
-  const int64_t last_q = (rt.q0 + p.block_q < p.sq ? rt.q0 + p.block_q : p.sq) - 1;
-  int64_t key_lo = 0, key_hi = p.kend;
-  if (p.window > 0) {
-    const int64_t w = p.q_offset + rt.q0 - p.window + 1;
-    key_lo = w > 0 ? w : 0;
-  }
-  if (p.causal) {
-    const int64_t c = p.q_offset + last_q + 1;
-    key_hi = c < key_hi ? c : key_hi;
-  }
-  const int64_t t_lo = key_lo / kBwdKeys;
-  const int64_t t_hi = key_hi > key_lo ? (key_hi + kBwdKeys - 1) / kBwdKeys : t_lo;
-  if (t_lo < t_hi) load_keys<HD>(p, b, kvh, t_lo * kBwdKeys, sK, sV);
-  cp_async_commit();
-
-  const int rg = warp & 3;
-  const int cg = warp >> 2;
-  float acc[CW / 8][4];
-#pragma unroll
-  for (int j = 0; j < CW / 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-
-  for (int64_t t = t_lo; t < t_hi; ++t) {
-    const int stage = (int)((t - t_lo) & 1);
-    if (t + 1 < t_hi)
-      load_keys<HD>(p, b, kvh, (t + 1) * kBwdKeys,
-                    sK + (stage ^ 1) * kBwdKeys * LD,
-                    sV + (stage ^ 1) * kBwdKeys * LD);
-    cp_async_commit();
-    cp_async_wait<1>();  // the rows and key tile t have landed
-    __syncthreads();
-    const T* tK = sK + stage * kBwdKeys * LD;
-    score_tile<HD>(p, rt, t * kBwdKeys, sQ, sdO, tK, sV + stage * kBwdKeys * LD,
-                   nullptr, sdS);
-    __syncthreads();
-    if (cg < kCG) {
-#pragma unroll
-      for (int ks = 0; ks < kBwdKeys / 16; ++ks) {
-        uint32_t a[4];   // dS (16 rows x 16 keys)
-        ldsm_x4(a, sdS + (16 * rg + (lane & 15)) * kLdp + 16 * ks + (lane >> 4) * 8);
-#pragma unroll
-        for (int dp2 = 0; dp2 < CW / 16; ++dp2) {
-          uint32_t bb[4];   // K (16 keys x 16 dims), read transposed
-          ldsm_x4_trans(bb, tK + (16 * ks + (lane & 7) + ((lane >> 3) & 1) * 8) * LD +
-                                cg * CW + dp2 * 16 + (lane >> 4) * 8);
-          mma_bf16(acc[2 * dp2], a, bb[0], bb[1]);
-          mma_bf16(acc[2 * dp2 + 1], a, bb[2], bb[3]);
-        }
-      }
-    }
-    __syncthreads();  // the stage and dS are free
-  }
-  cp_async_wait<0>();
-
-  if (cg >= kCG) return;
-  const int g = lane >> 2;
-  const int tq = lane & 3;
-  const int rows = p.heads_per_block * p.block_q;
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int r = 16 * rg + g + 8 * half;
-    const int64_t qi = rt.q0 + r % p.block_q;
-    if (r >= rows || qi >= p.sq) continue;
-    const int64_t h = rt.h0 + r / p.block_q;
-    T* row = p.dq + b * p.dqs[0] + h * p.dqs[1] + qi * p.dqs[2] + cg * CW;
-#pragma unroll
-    for (int j = 0; j < CW / 8; ++j)
+    for (int j = 0; j < C::kND / 8; ++j)
       *reinterpret_cast<__nv_bfloat162*>(row + 8 * j + 2 * tq) =
-          __floats2bfloat162_rn(acc[j][2 * half], acc[j][2 * half + 1]);
+          __floats2bfloat162_rn(acc[4 * j + 2 * half],
+                                acc[4 * j + 2 * half + 1]);
   }
 }
 
 // ---------------------------------------------------------------------------
-// Launches
+// Host: tensor maps and launches
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver, found through the runtime, so
+// the library needs no -lcuda.
+EncodeTiled encode_fn() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(ptr);
+  }
+  return fn;
+}
+
+// A 4-D map (hd, positions, heads, batch) over bf16 storage with element
+// strides `st` (batch, head, position), boxes of (swizzle span, box_pos,
+// box_heads, 1).
+template <int HD>
+int encode(CUtensorMap* map, const void* ptr, const int64_t* st, int64_t B,
+           int64_t heads, int64_t positions, int box_pos, int box_heads) {
+  using C = Cfg<HD>;
+  EncodeTiled fn = encode_fn();
+  if (fn == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {(cuuint64_t)HD, (cuuint64_t)positions,
+                              (cuuint64_t)heads, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)st[2] * 2, (cuuint64_t)st[1] * 2,
+                                 (cuuint64_t)st[0] * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)C::kSpanCols, (cuuint32_t)box_pos,
+                             (cuuint32_t)box_heads, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUtensorMapSwizzle swz =
+      C::kLayout == 1 ? CU_TENSOR_MAP_SWIZZLE_128B
+                      : (C::kLayout == 2 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                         : CU_TENSOR_MAP_SWIZZLE_32B);
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                        const_cast<void*>(ptr), dims, strides, box, unit,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, swz,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
 
 template <int HD>
-int launch_bwd(const BwdParams& p, cudaStream_t st) {
+int launch_bwd(BwdParams& p, const void* q, const void* k, const void* v,
+               const int64_t* strides, cudaStream_t st) {
+  using C = Cfg<HD>;
+  const int64_t* qs = strides;
+  const int64_t* ks = strides + 3;
+  const int64_t* vs = strides + 6;
+  const int64_t* dos = strides + 12;
+  int err = encode<HD>(&p.tq_kv, q, qs, p.batch, p.heads, p.sq, p.kv_bq,
+                       p.kv_hpt);
+  if (!err) err = encode<HD>(&p.tdo_kv, p.dout, dos, p.batch, p.heads, p.sq,
+                             p.kv_bq, p.kv_hpt);
+  if (!err) err = encode<HD>(&p.tq_q, q, qs, p.batch, p.heads, p.sq, p.q_bq,
+                             p.q_hpt);
+  if (!err) err = encode<HD>(&p.tdo_q, p.dout, dos, p.batch, p.heads, p.sq,
+                             p.q_bq, p.q_hpt);
+  if (!err) err = encode<HD>(&p.tk, k, ks, p.batch, p.kv_heads, p.kend,
+                             kTileRows, 1);
+  if (!err) err = encode<HD>(&p.tv, v, vs, p.batch, p.kv_heads, p.kend,
+                             kTileRows, 1);
+  if (err) return err;
   static bool kv_configured = false, q_configured = false;
-  if (int err = allow_smem(dkdv_kernel<HD>, BwdTile<HD>::kSmemKV, &kv_configured))
-    return err;
-  if (int err = allow_smem(dq_kernel<HD>, BwdTile<HD>::kSmemQ, &q_configured))
-    return err;
+  if (int e = allow_smem(dkdv_kernel<HD>, C::kSmemKv, &kv_configured))
+    return e;
+  if (int e = allow_smem(dq_kernel<HD>, C::kSmemQ, &q_configured)) return e;
+
   const int64_t rows = (int64_t)p.batch * p.heads * p.sq;
-  delta_kernel<<<(unsigned)((rows + kBwdWarps - 1) / kBwdWarps), kBwdThreads,
-                 0, st>>>(p, HD);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const int64_t kv_blocks = (int64_t)p.batch * p.kv_heads * p.n_ktiles;
-  dkdv_kernel<HD><<<(unsigned)kv_blocks, kBwdThreads, BwdTile<HD>::kSmemKV,
-                    st>>>(p);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  const int64_t rows_a_block = 8 * (32 / (HD / 8 < 32 ? HD / 8 : 32));
+  delta_kernel<HD><<<(unsigned)((rows + rows_a_block - 1) / rows_a_block),
+                     256, 0, st>>>(p);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)((int64_t)p.batch * p.kv_heads * p.cluster *
+                                p.n_ktiles));
+  cfg.blockDim = dim3(C::kThreads);
+  cfg.dynamicSmemBytes = C::kSmemKv;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)p.cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, dkdv_kernel<HD>, p);
+  if (e != cudaSuccess) return (int)e;
+
   const int64_t q_blocks =
-      (int64_t)p.batch * (p.heads / p.heads_per_block) * p.n_qtiles;
-  dq_kernel<HD><<<(unsigned)q_blocks, kBwdThreads, BwdTile<HD>::kSmemQ, st>>>(p);
+      (int64_t)p.batch * (p.heads / p.q_hpt) * p.n_qtiles;
+  dq_kernel<HD><<<(unsigned)q_blocks, C::kThreads, C::kSmemQ, st>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -538,27 +893,29 @@ int launch_bwd(const BwdParams& p, cudaStream_t st) {
 
 // q (B, H, Sq, hd), k and v (B, KV, Skv, hd), o and dout (B, H, Sq, hd), each
 // bf16 through its element strides (batch, head, position; unit stride along
-// hd, 16-byte aligned rows), which `strides` holds on the host: q, k, v, o,
-// dout, dq, dk, dv, three each. lse: the forward's float32 (B, H, Sq); delta:
-// float32 scratch of the same shape. Writes dq (B, H, Sq, hd) and dk, dv (B,
-// KV, Skv, hd), bf16, through their strides. Keys [0, kend) exist (kend <=
-// Skv); window <= 0 and softcap <= 0 mean none. Three launches on `stream` of
-// `device`; returns the first CUDA error (0 on success).
+// hd, 16-byte aligned base and strides), which `strides` holds on the host:
+// q, k, v, o, dout, dq, dk, dv, three each. lse: the forward's float32
+// (B, H, Sq); delta: float32 scratch of the same shape. Writes dq (B, H, Sq,
+// hd) and dk, dv (B, KV, Skv, hd), bf16, through their strides. Keys
+// [0, kend) exist (1 <= kend <= Skv); window <= 0 and softcap <= 0 mean none.
+// `plan` is plan_bwd's (kernels/flash_attention_bwd/kernel.py): cluster,
+// heads x queries of a dK/dV row tile, heads x queries of a dQ row tile;
+// `tiles` its int32 tile table on the device (BwdParams::tiles: 3 ints for
+// each of the ceil(Skv / 64) dK/dV positions, then for each of the
+// ceil(Sq / dQ's queries a tile) dQ positions). Three launches on `stream`
+// of `device`; returns the first CUDA error (0 on success).
 extern "C" int flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const float* lse, float* delta, void* dq, void* dk,
     void* dv, const int64_t* strides, int64_t B, int64_t H, int64_t KV,
     int64_t Sq, int64_t Skv, int64_t kend, int64_t hd, int causal,
-    int64_t window, float softcap, int64_t q_offset, float scale, void* stream,
-    int device) {
+    int64_t window, float softcap, int64_t q_offset, float scale,
+    const int64_t* plan, const int* tiles, void* stream, int device) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (KV < 1 || H % KV != 0 || Sq < 1 || Skv < 1)
+  if (KV < 1 || H % KV != 0 || Sq < 1 || Skv < 1 || kend < 1 || kend > Skv)
     return (int)cudaErrorInvalidValue;
   BwdParams p;
-  p.q = static_cast<const T*>(q);
-  p.k = static_cast<const T*>(k);
-  p.v = static_cast<const T*>(v);
   p.o = static_cast<const T*>(o);
   p.dout = static_cast<const T*>(dout);
   p.lse = lse;
@@ -566,23 +923,34 @@ extern "C" int flash_attention_bwd(
   p.dq = static_cast<T*>(dq);
   p.dk = static_cast<T*>(dk);
   p.dv = static_cast<T*>(dv);
-  int64_t* dst[8] = {p.qs, p.ks, p.vs, p.os, p.dos, p.dqs, p.dks, p.dvs};
-  for (int a = 0; a < 8; ++a)
-    for (int i = 0; i < 3; ++i) dst[a][i] = strides[3 * a + i];
+  for (int i = 0; i < 3; ++i) {
+    p.os[i] = strides[9 + i];
+    p.dos[i] = strides[12 + i];
+    p.dqs[i] = strides[15 + i];
+    p.dks[i] = strides[18 + i];
+    p.dvs[i] = strides[21 + i];
+  }
   p.batch = (int)B;
   p.heads = (int)H;
   p.kv_heads = (int)KV;
   p.group = (int)(H / KV);
-  // query heads per row tile: the largest divisor of G that fits 64 rows,
-  // then as many queries per head as fit (the forward's packing)
-  int hpb = p.group < kBwdRows ? p.group : kBwdRows;
-  while (p.group % hpb) --hpb;
-  p.heads_per_block = hpb;
-  const int64_t per_head = kBwdRows / hpb;
-  p.block_q = (int)(Sq < per_head ? Sq : per_head);
-  p.n_hblocks = p.group / hpb;
-  p.n_qtiles = (Sq + p.block_q - 1) / p.block_q;
-  p.n_ktiles = (Skv + kBwdKeys - 1) / kBwdKeys;
+  p.cluster = (int)plan[0];
+  p.kv_hpt = (int)plan[1];
+  p.kv_bq = (int)plan[2];
+  p.q_hpt = (int)plan[3];
+  p.q_bq = (int)plan[4];
+  p.tiles = tiles;
+  // the plan's invariants (plan_bwd holds them; a wrong plan would leave
+  // rows or heads unvisited)
+  if (p.cluster < 1 || p.cluster > kMaxCluster || p.group % p.cluster ||
+      p.kv_hpt < 1 || (p.group / p.cluster) % p.kv_hpt || p.kv_bq < 1 ||
+      p.kv_hpt * p.kv_bq > kTileRows || p.q_hpt < 1 || p.group % p.q_hpt ||
+      p.q_bq < 1 || p.q_hpt * p.q_bq > kTileRows)
+    return (int)cudaErrorInvalidValue;
+  p.heads_per_block = p.group / p.cluster;
+  p.n_ktiles = (int)((Skv + kTileRows - 1) / kTileRows);
+  p.n_qtiles = (int)((Sq + p.q_bq - 1) / p.q_bq);
+  if (tiles == nullptr) return (int)cudaErrorInvalidValue;
   p.sq = Sq;
   p.skv = Skv;
   p.kend = kend;
@@ -593,11 +961,11 @@ extern "C" int flash_attention_bwd(
   p.scale = scale;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (hd) {
-    case 16: return launch_bwd<16>(p, st);
-    case 32: return launch_bwd<32>(p, st);
-    case 64: return launch_bwd<64>(p, st);
-    case 128: return launch_bwd<128>(p, st);
-    case 256: return launch_bwd<256>(p, st);
+    case 16: return launch_bwd<16>(p, q, k, v, strides, st);
+    case 32: return launch_bwd<32>(p, q, k, v, strides, st);
+    case 64: return launch_bwd<64>(p, q, k, v, strides, st);
+    case 128: return launch_bwd<128>(p, q, k, v, strides, st);
+    case 256: return launch_bwd<256>(p, q, k, v, strides, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

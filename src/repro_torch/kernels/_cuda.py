@@ -68,7 +68,8 @@ _SIGNATURES = {
                          _INT, _I64, _I64, _I64, _I64, _VP, _VP, _INT]),
     "flash_attention_bwd": ("flash_attention_bwd",
                             [_VP] * 11 + [_I64] * 7 + [_INT, _I64, _F32, _I64,
-                                                       _F32, _VP, _INT]),
+                                                       _F32, _VP, _VP, _VP,
+                                                       _INT]),
     "selective_scan": ("selective_scan",
                        [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I64,
                         _I64, _I64, _I64, _INT, _VP, _INT]),

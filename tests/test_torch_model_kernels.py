@@ -498,6 +498,24 @@ def test_cuda_attention_bwd_matches_plain(B, H, KV, Sq, Skv, hd, window,
         assert not bool(got[2][:, :, kv_len:].any())
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize(BWD_IDS, [BWD[9], BWD[10], BWD[11], BWD[6],
+                                   BWD[8]])
+def test_cuda_attention_bwd_is_deterministic(B, H, KV, Sq, Skv, hd, window,
+                                             softcap, q_offset, kv_len):
+    """Two calls on the same inputs give bit-equal dq, dk and dv: no float
+    atomics; a cluster sums its heads' dK and dV in ascending order (the
+    training shapes, G 64 in 8-block clusters, a chunk with kv_len)."""
+    dev = _card()
+    kw = dict(causal=True, window=window, softcap=softcap, q_offset=q_offset,
+              kv_len=kv_len)
+    args = _bwd_inputs(B * Sq + hd + 1, B, H, KV, Sq, Skv, hd, kw, dev)
+    first = [t.clone() for t in flash_attention_bwd_kernel(*args, **kw)]
+    second = flash_attention_bwd_kernel(*args, **kw)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
 LSE_CASES = PREFILL + [(1, 4, 1, 2, 2, 64, None, None, 0, None),
                        (2, 4, 1, 1024, 1024, 256, 512, None, 0, None)]
 
