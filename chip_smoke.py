@@ -6,9 +6,10 @@
 Phases, each raising on failure (the script then exits non-zero):
 
 1. the card: its name and power limit (``nvidia-smi``);
-2. build all eight CUDA libraries from ``src/repro_torch/csrc`` (one ``nvcc``
+2. build all nine CUDA libraries from ``src/repro_torch/csrc`` (one ``nvcc``
    each, in parallel); print ``ptxas``'s registers and spills of every
-   entry function (no ``flash_attention_bwd`` entry function may spill),
+   entry function (no ``flash_attention_bwd`` or ``selective_scan_bwd``
+   entry function may spill),
    the tensor-core instructions (``HMMA``/``HGMMA``) of every
    ``flash_attention`` kernel from ``cuobjdump -sass`` (each bf16
    tensor-core prefill kernel must have some) and the warpgroup products
@@ -135,7 +136,22 @@ Phases, each raising on failure (the script then exits non-zero):
    forward (twice per layer: remat recomputes it) and backward launches
    per step. (c) the supervisor at the reduced gemma3-1b on the card:
    a checkpoint every 4 steps, a failure at step 6, 24 steps; one restart,
-   the restored state bit-equal to what was saved.
+   the restored state bit-equal to what was saved;
+13. training Mamba-1 (``phase_train_mamba_kernels``, ``phase_train_mamba``;
+   its wall time printed): (a) the scan's forward with round states and
+   ``selective_scan_bwd`` at falcon-mamba-7b's shape (Bz 4, S 1,024, Di
+   8,192, N 16) in float32 and bf16, a nonzero h0 and dh_last: y and
+   h_last bit-equal to the forward without states, every gradient against
+   the plain backward on the same inputs within ten times ``TOL``
+   (float32) or ``TOL`` (bf16) of its largest entry, two calls bit-equal;
+   device and wrapper times of the forward with and without states and of
+   the backward, the plain backward's, beside the bound (bytes: x, dt, dy
+   read and dx, ddt written). (b) falcon-mamba-7b at full width and depth
+   ``MAMBA_TRAIN_LAYERS`` of 64, batch 4 x 1,024, the same run as 12 (b):
+   first step against ``backend="plain"`` within ``TRAIN_TOL``, 8 steps
+   with a falling loss, ``selective_scan`` twice and
+   ``selective_scan_bwd`` once a layer a step and nothing else, one step
+   profiled by family.
 
 The launch counts of each path are reset just before it runs and read just
 after. The second-to-last line is the kernel summary as JSON; the last line
@@ -264,6 +280,11 @@ BWD_CASES = (
 #: float32 is printed beside)
 TRAIN_B, TRAIN_S, TRAIN_STEPS = 4, 1024, 8
 TRAIN_TOL = 5e-2
+#: Phase 13: the scan backward's dtypes at falcon-mamba-7b's shape
+#: (MAMBA_BZ x TRAIN_S, MAMBA_DI, MAMBA_N), and the depth falcon-mamba-7b
+#: trains at (64 layers need 112.1 GB of training state; 8 need 17.7 GB)
+SCAN_BWD_DTYPES = ("float32", "bfloat16")
+MAMBA_TRAIN_LAYERS = 8
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
 FP64_FLOPS = 34e12            # H100 SXM float64, outside the tensor cores
 BF16_FLOPS = 989e12           # H100 SXM bf16, dense tensor cores
@@ -1704,6 +1725,8 @@ def device_split(fn, calls: int = 20) -> tuple[dict, float]:
 STEP_FAMILIES = (
     ("flash_attention_bwd", ("dkdv_kernel", "dq_kernel", "delta_kernel")),
     ("flash_attention", ("flash_kernel",)),
+    ("selective_scan_bwd", ("scan_bwd_kernel", "scan_bwd_sum_kernel")),
+    ("selective_scan", ("scan_kernel",)),
     ("gemm", ("gemm", "Gemm", "nvjet", "sm90_", "cutlass", "xmma",
               "cublas")),
     ("copy", ("Memcpy", "Memset")),
@@ -1901,27 +1924,176 @@ def phase_train_kernels(dev) -> dict:
     return {"flash_attention_bwd": out}
 
 
+def scan_bwd_work(Bz: int, S: int, Di: int, N: int,
+                  size: int) -> tuple[int, int, int]:
+    """Bytes, float32 operations and exponentials the scan's backward must
+    spend: each input read once and each output written once (x, dt, dy,
+    dx, ddt per (b, t, d) in the streams' ``size``; B, C, dB, dC per
+    (b, t, n); A, dA per (d, n), D, dD per d and h0, dh_last, dh0 per
+    (b, d, n) in float32; the forward's round states are the kernel's own
+    and not counted). Per (b, t, d, n) one exponential, 5 operations to
+    recompute h and dC's term and 13 for g, its products and the
+    carry."""
+    bytes_ = (size * (5 * Bz * S * Di + 4 * Bz * S * N)
+              + 4 * (2 * Di * N + 2 * Di + 3 * Bz * Di * N))
+    return bytes_, 18 * Bz * S * Di * N, Bz * S * Di * N
+
+
+def phase_train_mamba_kernels(dev) -> dict:
+    """Phase 13 (a): the scan's backward at falcon-mamba-7b's shape in
+    float32 and bf16 (``SCAN_BWD_DTYPES``), from a seed with a nonzero h0
+    and dh_last: the forward with round states bit-equal in y and h_last
+    to the forward without; every gradient against the plain backward on
+    the card on the same inputs within ``10 x TOL`` (float32) or ``TOL``
+    (bf16) of the output's largest entry; two calls bit-equal; device and
+    wrapper times of the forward with and without states and of the
+    backward, the plain backward's device time and the bound."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.selective_scan import (round_states,
+                                                    selective_scan_kernel)
+    from repro_torch.kernels.selective_scan_bwd import (
+        selective_scan_bwd_kernel, selective_scan_bwd_ref)
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(19)
+    Bz, S, Di, N = MAMBA_BZ, TRAIN_S, MAMBA_DI, MAMBA_N
+    out = []
+    for dtype in SCAN_BWD_DTYPES:
+        dt_ = getattr(torch, dtype)
+        x, dts, B_, C_, A, D, h0 = _scan_set(rng, Bz, S, Di, N, dev)
+        args = (x.to(dt_), dts.to(dt_), B_.to(dt_), C_.to(dt_), A, D, h0)
+        dy = torch.tensor(rng.standard_normal((Bz, S, Di), np.float32),
+                          device=dev).to(dt_)
+        dh_last = torch.tensor(rng.standard_normal((Bz, Di, N), np.float32),
+                               device=dev)
+        y0, hl0 = selective_scan_kernel(*args)
+        states = round_states(args[0], h0)
+        y, hl = selective_scan_kernel(*args, states)
+        if not (torch.equal(y, y0) and torch.equal(hl, hl0)):
+            raise AssertionError(f"selective_scan {dtype}: the forward with "
+                                 "states differs from the one without")
+        del y0, hl0, y, hl
+        got = selective_scan_bwd_kernel(*args, states, dy, dh_last)
+        again = selective_scan_bwd_kernel(*args, states, dy, dh_last)
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"selective_scan_bwd {dtype}: two calls on "
+                                 "the same inputs differ")
+        del again
+        want = selective_scan_bwd_ref(*args, states, dy, dh_last)
+        tol = 10 * TOL["float32"] if dtype == "float32" else TOL[dtype]
+        errors = {}
+        for label, g, w in zip(("dx", "ddt", "dB", "dC", "dA", "dD", "dh0"),
+                               got, want):
+            g, w = g.float(), w.float()
+            scale = float(w.abs().max())
+            err = float((g - w).abs().max())
+            errors[label] = err / scale
+            if not torch.allclose(g, w, rtol=tol, atol=tol * scale):
+                raise AssertionError(
+                    f"selective_scan_bwd {dtype} {label}: max abs err {err} "
+                    f"beyond tol {tol} of the largest entry {scale}")
+        del got, want
+        torch.cuda.synchronize(dev)
+        size = args[0].element_size()
+        bytes_, flops, exps = scan_bwd_work(Bz, S, Di, N, size)
+        bound_ms, term = roofline(bytes_, flops, FP32_FLOPS, exps)
+        kern = lambda: selective_scan_bwd_kernel(  # noqa: E731
+            *args, states, dy, dh_last)
+        plain = lambda: selective_scan_bwd_ref(  # noqa: E731
+            *args, states, dy, dh_last)
+        split, _ = device_split(kern)
+        r = dict(shape=f"selective_scan_bwd {dtype} Bz={Bz} S={S} Di={Di} "
+                       f"N={N}",
+                 max_abs_err=max(errors.values()), errors=errors, tol=tol,
+                 fwd_ms=device_ms(lambda: selective_scan_kernel(*args)),
+                 fwd_states_ms=device_ms(
+                     lambda: selective_scan_kernel(*args, states)),
+                 ms=device_ms(kern, calls=10),
+                 wrapper_ms=wrapper_ms(kern, calls=10, warmup=3),
+                 fwd_states_wrapper_ms=wrapper_ms(
+                     lambda: selective_scan_kernel(*args, states)),
+                 plain_ms=device_ms(plain, rounds=3, calls=1),
+                 plain_wrapper_ms=wrapper_ms(plain, rounds=3, calls=1,
+                                             warmup=1),
+                 # µs a launch of each kernel, the launches the profiler
+                 # recorded of 20 calls
+                 split_us={k.replace("(anonymous namespace)::", "")
+                           .split("(")[0].split("<")[0]: (us / n, n)
+                           for k, (us, n) in split.items()},
+                 library_ms=None, bytes=bytes_, flops=flops, exps=exps,
+                 bound_ms=bound_ms, bound_by=term)
+        print(f"[train-mamba-kernels] {r['shape']}: errors relative to each "
+              f"output's largest entry {errors} (tol {tol}); forward with "
+              f"states bit-equal in y and h_last; two backward calls "
+              f"bit-equal; device: forward={1e3 * r['fwd_ms']!r}us forward "
+              f"with states={1e3 * r['fwd_states_ms']!r}us backward="
+              f"{1e3 * r['ms']!r}us plain backward={1e3 * r['plain_ms']!r}us; "
+              f"through the wrapper: backward={1e3 * r['wrapper_ms']!r}us "
+              f"forward with states={1e3 * r['fwd_states_wrapper_ms']!r}us "
+              f"plain={1e3 * r['plain_wrapper_ms']!r}us; library=none; "
+              f"bytes={bytes_} flops={flops} exps={exps} "
+              f"bound={1e3 * bound_ms!r}us ({term}); by kernel (profiler: "
+              f"us a launch, launches recorded of 20 calls): "
+              f"{r['split_us']}")
+        out.append(r)
+        del args, x, dts, B_, C_, A, D, h0, dy, dh_last, states
+        torch.cuda.empty_cache()
+    print(f"[train-mamba-kernels] phase 13 (a) wall_s="
+          f"{time.perf_counter() - t_phase!r}")
+    return {"selective_scan_bwd": out}
+
+
 def phase_train(dev) -> dict:
     """Phase 12 (b): gemma3-1b at full width and depth through
-    ``repro_torch.launch.train``'s functions: the first step on the
-    kernels against ``backend="plain"``, then ``TRAIN_STEPS`` steps on a
-    repeated batch under the supervisor; returns step times, memory and
-    the launches of the steps."""
+    ``repro_torch.launch.train``'s functions (:func:`_train_run`):
+    ``flash_attention`` twice a layer a step (remat recomputes it) and
+    ``flash_attention_bwd`` once."""
+    from repro_torch.configs import get_config
+
+    return _train_run(dev, get_config("gemma3-1b"), "12 (b)",
+                      ("flash_attention", "flash_attention_bwd"))
+
+
+def phase_train_mamba(dev) -> dict:
+    """Phase 13 (b): falcon-mamba-7b at full width, its depth cut from 64
+    to ``MAMBA_TRAIN_LAYERS`` (``dataclasses.replace``), through
+    ``repro_torch.launch.train``'s functions (:func:`_train_run`):
+    ``selective_scan`` twice a layer a step (remat recomputes it; the
+    second run saves the round states) and ``selective_scan_bwd`` once."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    cfg = dataclasses.replace(get_config("falcon-mamba-7b"),
+                              n_layers=MAMBA_TRAIN_LAYERS)
+    return _train_run(dev, cfg, "13 (b)",
+                      ("selective_scan", "selective_scan_bwd"))
+
+
+def _train_run(dev, cfg, phase: str, kernels: tuple) -> dict:
+    """A full-width training run: the first step on the kernels against
+    ``backend="plain"`` (and the plain route in float32), then
+    ``TRAIN_STEPS`` steps on a repeated batch under the supervisor; the
+    forward kernel of ``kernels`` must launch twice a layer a step, the
+    backward once, nothing else. Returns step times, memory, the launches
+    of the steps and one profiled step by family."""
     import tempfile
 
     import torch
 
     from repro_torch.checkpoint.ckpt import _leaf_paths
-    from repro_torch.configs import get_config
     from repro_torch.fault.failures import TrainingSupervisor
     from repro_torch.kernels import _cuda
     from repro_torch.launch import train as launch_train
     from repro_torch.train.optimizer import tree_leaves, tree_map
     from repro_torch.train.train_step import grad_fn
 
+    fwd_name, bwd_name = kernels
     t_phase = time.perf_counter()
     torch.cuda.empty_cache()
-    cfg = get_config("gemma3-1b")
     t0 = time.perf_counter()
     run = launch_train.build(cfg, batch=TRAIN_B, seq=TRAIN_S,
                              steps=TRAIN_STEPS, device=dev)
@@ -1936,7 +2108,7 @@ def phase_train(dev) -> dict:
     lk, _, gk = grad_fn(cfg, run["tcfg"], params, b, backend="auto")
     hold_launches = dict(_cuda.LAUNCHES)
     lp, _, gp = grad_fn(cfg, run["tcfg"], params, b, backend="plain")
-    if hold_launches["flash_attention_bwd"] != cfg.n_layers or any(
+    if hold_launches[bwd_name] != cfg.n_layers or any(
             _cuda.LAUNCHES[n] != c for n, c in hold_launches.items()):
         raise AssertionError(f"first step launches {hold_launches}, plain "
                              f"route {_cuda.LAUNCHES}")
@@ -1948,7 +2120,7 @@ def phase_train(dev) -> dict:
     noise = [_rel_l2(a, c) for a, c in zip(tree_leaves(gp), tree_leaves(g32))]
     loss_err = abs(float(lk) - float(lp)) / abs(float(lp))
     worst = max(range(len(err)), key=err.__getitem__)
-    print(f"[train] gemma3-1b full width params="
+    print(f"[train] {cfg.name} full width, {cfg.n_layers} layers, params="
           f"{sum(t.numel() for t in tree_leaves(params))} init_s={init_s!r} "
           f"first step: loss kernels={float(lk)!r} plain={float(lp)!r} "
           f"plain f32={float(l32)!r} rel err={loss_err!r}; gradient leaves "
@@ -1987,22 +2159,22 @@ def phase_train(dev) -> dict:
         written = os.listdir(tmp)
     losses = [h["loss"] for h in hist]
     step_s = statistics.median(times)
-    fwd, bwd = launches["flash_attention"], launches["flash_attention_bwd"]
+    fwd, bwd = launches[fwd_name], launches[bwd_name]
     others = {n: c for n, c in launches.items()
-              if c and n not in ("flash_attention", "flash_attention_bwd")}
-    print(f"[train] {TRAIN_STEPS} steps B={TRAIN_B} S={TRAIN_S}: losses "
-          f"{losses} step_ms median={1e3 * step_s!r} (all "
+              if c and n not in (fwd_name, bwd_name)}
+    print(f"[train] {cfg.name} {TRAIN_STEPS} steps B={TRAIN_B} S={TRAIN_S}: "
+          f"losses {losses} step_ms median={1e3 * step_s!r} (all "
           f"{[1e3 * x for x in times]}) tokens_per_s="
           f"{TRAIN_B * TRAIN_S / step_s!r} max_memory_allocated={peak} "
-          f"flash_attention launches per step={fwd / TRAIN_STEPS!r} "
-          f"flash_attention_bwd per step={bwd / TRAIN_STEPS!r}")
+          f"{fwd_name} launches per step={fwd / TRAIN_STEPS!r} "
+          f"{bwd_name} per step={bwd / TRAIN_STEPS!r}")
     if not losses[-1] < losses[0] or not all(map(math.isfinite, losses)):
         raise AssertionError(f"the loss did not fall: {losses}")
     if (fwd != 2 * cfg.n_layers * TRAIN_STEPS
             or bwd != cfg.n_layers * TRAIN_STEPS or others or written):
         raise AssertionError(f"training launches {launches} (want "
-                             f"flash_attention 2 x {cfg.n_layers} and "
-                             f"flash_attention_bwd {cfg.n_layers} per step, "
+                             f"{fwd_name} 2 x {cfg.n_layers} and "
+                             f"{bwd_name} {cfg.n_layers} per step, "
                              f"nothing else), checkpoints {written}")
     # one more step under torch.profiler: device time by family
     carry = [state]
@@ -2018,8 +2190,8 @@ def phase_train(dev) -> dict:
     # the profiler slows the host, so the busy share is taken against the
     # median step without it
     share = busy / (1e3 * step_s)
-    print(f"[train] profiled step: wall_ms={prof_ms!r} device busy ms="
-          f"{busy!r}, {100 * share!r}% of the median unprofiled step "
+    print(f"[train] {cfg.name} profiled step: wall_ms={prof_ms!r} device "
+          f"busy ms={busy!r}, {100 * share!r}% of the median unprofiled step "
           f"({1e3 * step_s!r} ms); by family (ms): "
           f"{ {k: v / 1e3 for k, v in families.items()} }; heaviest "
           f"device operations (ms): "
@@ -2027,8 +2199,9 @@ def phase_train(dev) -> dict:
     del state, carry
     torch.cuda.empty_cache()
     wall = time.perf_counter() - t_phase
-    print(f"[train] phase 12 (b) wall_s={wall!r}")
-    return {"launches": launches, "losses": losses, "step_ms": 1e3 * step_s,
+    print(f"[train] phase {phase} wall_s={wall!r}")
+    return {"arch": cfg.name, "layers": cfg.n_layers, "launches": launches,
+            "losses": losses, "step_ms": 1e3 * step_s,
             "step_ms_all": [1e3 * x for x in times],
             "tokens_per_s": TRAIN_B * TRAIN_S / step_s, "peak_bytes": peak,
             "first_step": {"loss_rel_err": loss_err,
@@ -2236,12 +2409,14 @@ def main() -> int:
     for name, reports in ptxas.items():
         for fn, report in reports:
             print(f"[build] {name}: {fn}: {report}")
-    spills = [fn for fn, report in ptxas.get("flash_attention_bwd", [])
+    spills = [f"{name}: {fn}"
+              for name in ("flash_attention_bwd", "selective_scan_bwd")
+              for fn, report in ptxas.get(name, [])
               if not report.endswith(" 0 bytes spill stores, 0 bytes spill "
                                      "loads")]
     if spills:
-        raise AssertionError(f"flash_attention_bwd entry functions that "
-                             f"spill: {spills}")
+        raise AssertionError(f"backward entry functions that spill: "
+                             f"{spills}")
     sass = phase_sass()
 
     kernels = phase_kernels(dev)
@@ -2258,6 +2433,10 @@ def main() -> int:
     train_kernels = phase_train_kernels(dev)
     train = phase_train(dev)
     supervised = phase_supervisor(dev)
+    t13 = time.perf_counter()
+    mamba_kernels = phase_train_mamba_kernels(dev)
+    mamba_train = phase_train_mamba(dev)
+    print(f"[train-mamba] phase 13 wall_s={time.perf_counter() - t13!r}")
     launches = {"net_rerate": golden["net_rerate"],
                 "event_engine": scale["event_engine"]}
     by_path = {name: {p: paths[p][name] for p, ks in PATH_KERNELS.items()
@@ -2410,12 +2589,47 @@ def main() -> int:
         "ptxas": dict(ptxas.get("flash_attention_bwd", [])),
         "hgmma_instructions": sass["bwd_tensor_core_instructions"],
     })
+    # the scan's backward: float32 is the training path's dtype; its
+    # launches are falcon-mamba-7b's training run (phase 13 (b))
+    rows = mamba_kernels["selective_scan_bwd"]
+    row = rows[0]
+    summary.append({
+        "name": "selective_scan_bwd", "route": "cuda",
+        "source": "src/repro_torch/csrc/selective_scan_bwd.cu",
+        "replaces": ("none: the reference differentiates "
+                     "_selective_scan_chunked, src/repro/models/mamba.py:69"),
+        "launches": mamba_train["launches"]["selective_scan_bwd"],
+        "max_abs_err": max(r["max_abs_err"] for r in rows),
+        "ms": row["ms"], "plain_ms": row["plain_ms"],
+        "bound_ms": row["bound_ms"],
+        "bound_by": "bytes" if row["bound_by"] == "bytes" else "operations",
+        "bound_term": row["bound_by"], "library_ms": None,
+        "wrapper_ms": row["wrapper_ms"],
+        "plain_wrapper_ms": row["plain_wrapper_ms"], "shape": row["shape"],
+        "errors": row["errors"], "tol": row["tol"],
+        "split_us": row["split_us"],
+        "forward_ms": {"without_states": row["fwd_ms"],
+                       "with_states": row["fwd_states_ms"],
+                       "with_states_wrapper": row["fwd_states_wrapper_ms"]},
+        "other_shapes": [{k: r[k] for k in
+                          ("shape", "max_abs_err", "errors", "ms", "fwd_ms",
+                           "fwd_states_ms", "plain_ms", "wrapper_ms",
+                           "split_us", "bound_ms", "bound_by")}
+                         for r in rows[1:]],
+        "training": {k: v for k, v in mamba_train.items() if k != "launches"},
+        "ptxas": dict(ptxas.get("selective_scan_bwd", [])),
+    })
     for entry in summary:
         if entry["name"] == "flash_attention":
             entry["lse_forward"] = [{k: r[k] for k in ("shape", "lse_ms",
                                                        "lse_err")}
-                                    for r in rows]
+                                    for r in train_kernels[
+                                        "flash_attention_bwd"]]
             entry["launches_training"] = train["launches"]["flash_attention"]
+        if entry["name"] == "selective_scan":
+            entry["launches_training"] = \
+                mamba_train["launches"]["selective_scan"]
+            entry["ptxas"] = dict(ptxas.get("selective_scan", []))
     for entry in summary:
         name = entry["name"]
         entry["phase10_launches"] = {

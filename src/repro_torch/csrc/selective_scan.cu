@@ -1,6 +1,9 @@
-// Mamba-1 selective scan for the serving path: every layer of
+// Mamba-1 selective scan for the serving and training paths: every layer of
 // falcon-mamba-7b, in prefill (S = the prompt) and in decode (S = 1, h0 = the
-// cached state).
+// cached state), and the training forward, which also saves h at the end of
+// every 16-step round for the backward (selective_scan_bwd.cu) to start its
+// rounds from. That store sits behind a template flag (kSave), so the
+// serving path's kernel is compiled without it.
 //
 // Replaces the Pallas TPU kernel _scan_kernel
 // (src/repro/kernels/selective_scan/kernel.py:29, pallas_call at :76). That
@@ -47,21 +50,13 @@
 // is bound by instruction issue, not by the exponentials: beside its
 // MUFU.EX2 each exp2f issues three instructions of subnormal handling.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
 
 #include <cstdint>
 
-namespace {
+#include "selective_scan.cuh"
 
-constexpr int kLanes = 4;                // lanes a channel
-constexpr int kPer = 4;                  // states a lane
-constexpr int kMaxN = kLanes * kPer;     // widest state
-constexpr int kCh = 64;                  // channels a block
-constexpr int kThreads = kCh * kLanes;   // threads a block
-constexpr int kSteps = 16;               // time steps a round
-constexpr float kLog2e = 1.4426950408889634f;
+namespace {
 
 // One round's inputs as they lie in device memory: x and dt rows of the
 // block's channels, B and C of the round's steps (stride N).
@@ -72,84 +67,6 @@ struct __align__(16) Stage {
   T b[kSteps * kMaxN];
   T c[kSteps * kMaxN];
 };
-
-__device__ inline float to_float(float x) { return x; }
-__device__ inline float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ inline void store(float* p, float x) { *p = x; }
-__device__ inline void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
-
-// Four neighbouring values at a 16-byte (float) or 8-byte (bf16) aligned
-// address, as floats.
-__device__ inline void load4(const float* p, float (&v)[kPer]) {
-  const float4 q = *reinterpret_cast<const float4*>(p);
-  v[0] = q.x, v[1] = q.y, v[2] = q.z, v[3] = q.w;
-}
-__device__ inline void load4(const __nv_bfloat16* p, float (&v)[kPer]) {
-  const uint2 q = *reinterpret_cast<const uint2*>(p);
-  const __nv_bfloat162 lo = *reinterpret_cast<const __nv_bfloat162*>(&q.x);
-  const __nv_bfloat162 hi = *reinterpret_cast<const __nv_bfloat162*>(&q.y);
-  v[0] = __low2float(lo), v[1] = __high2float(lo);
-  v[2] = __low2float(hi), v[3] = __high2float(hi);
-}
-
-__device__ inline uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// One granule of g bytes: 16 through L2 only, 8 and 4 through L1, 2 (bf16
-// rows of odd length) as a plain load and store.
-__device__ inline void copy_granule(char* dst, const char* src, int g) {
-  switch (g) {
-    case 16:
-      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                       smem_u32(dst)), "l"(src));
-      break;
-    case 8:
-      asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(
-                       smem_u32(dst)), "l"(src));
-      break;
-    case 4:
-      asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
-                       smem_u32(dst)), "l"(src));
-      break;
-    default:
-      *reinterpret_cast<uint16_t*>(dst) =
-          *reinterpret_cast<const uint16_t*>(src);
-  }
-}
-
-__device__ inline void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ inline void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// This thread's share of every round's copies, fixed for the sequence:
-// granule m of the x and dt tiles (m < kRowCopies, the most a thread
-// takes when a granule is one element) lies `row[m]` steps into the round
-// and `col[m]` bytes into the row (row kSteps: none).
-constexpr int kRowCopies = kSteps * kCh / kThreads;
-
-struct CopyPlan {
-  int row[kRowCopies], col[kRowCopies];
-};
-
-__device__ inline CopyPlan plan_copies(int row_bytes, int g, int tid) {
-  CopyPlan p;
-  const int per_row = row_bytes / g;
-#pragma unroll
-  for (int m = 0; m < kRowCopies; ++m) {
-    const int k = tid + m * kThreads, i = k / per_row;
-    p.row[m] = i < kSteps ? i : kSteps;
-    p.col[m] = (k - i * per_row) * g;
-  }
-  return p;
-}
 
 // Issue the copies of the round of `steps` steps from t0 into `s`.
 template <typename T>
@@ -181,31 +98,20 @@ __device__ inline void stage_round(Stage<T>& s, const T* x, const T* dt,
   }
 }
 
-// A lane's kPer values of a state row (n0 .. n0 + 3 of `row`); masked
-// states read as 0. kFull: N = 16 and the row 16-byte aligned.
-template <bool kFull>
-__device__ inline void load_state(const float* row, int n0, int N, bool live,
-                                  float (&v)[kPer]) {
-  if (kFull && live) {
-    load4(row + n0, v);
-  } else {
-#pragma unroll
-    for (int j = 0; j < kPer; ++j)
-      v[j] = live && n0 + j < N ? row[n0 + j] : 0.f;
-  }
-}
-
 // x, dt, y (Bz, S, Di); bm, cm (Bz, S, N); a (Di, N); dskip (Di,); h0,
-// h_last (Bz, Di, N). Grid (ceil(Di / kCh), Bz); gx, gb: the copy granules
-// of the x / dt rows and of the B / C runs.
-template <typename T, bool kFull>
+// h_last (Bz, Di, N); states (Bz, ceil(S / kSteps), Di, N), written only
+// when kSave (the training forward): h at the end of every round, which
+// the backward (selective_scan_bwd.cu) starts its rounds from. Grid
+// (ceil(Di / kCh), Bz); gx, gb: the copy granules of the x / dt rows and
+// of the B / C runs.
+template <typename T, bool kFull, bool kSave>
 __global__ void __launch_bounds__(kThreads)
     scan_kernel(const T* __restrict__ x, const T* __restrict__ dt,
                 const T* __restrict__ bm, const T* __restrict__ cm,
                 const float* __restrict__ a, const float* __restrict__ dskip,
                 const float* __restrict__ h0, T* __restrict__ y,
-                float* __restrict__ h_last, int64_t S, int64_t Di, int N,
-                int gx, int gb) {
+                float* __restrict__ h_last, float* __restrict__ states,
+                int64_t S, int64_t Di, int N, int gx, int gb) {
   __shared__ Stage<T> stage[2];
   __shared__ __align__(16) float s_p[kSteps][kCh][kLanes];  // y partials
   const int tid = threadIdx.x;
@@ -265,6 +171,8 @@ __global__ void __launch_bounds__(kThreads)
       }
       s_p[i][ch][lane] = part;
     }
+    if (kSave && live)
+      store_state<kFull>(states + ((b * rounds + r) * Di + d) * N, n0, N, h);
     __syncthreads();  // s_p is whole; stage r is no longer read
     for (int k = tid; k < steps * kCh; k += kThreads) {
       const int i = k / kCh, c = k % kCh;
@@ -275,57 +183,56 @@ __global__ void __launch_bounds__(kThreads)
     }
   }
   if (!live) return;
-  float* out = h_last + (b * Di + d) * N;
-  if (kFull) {
-    *reinterpret_cast<float4*>(out + n0) = make_float4(h[0], h[1], h[2], h[3]);
-  } else {
-#pragma unroll
-    for (int j = 0; j < kPer; ++j)
-      if (n0 + j < N) out[n0 + j] = h[j];
-  }
+  store_state<kFull>(h_last + (b * Di + d) * N, n0, N, h);
 }
 
-// The widest granule (16, 8 or 4 bytes) that every pointer and
-// `row_bytes` are multiples of; the element size when none is.
-int granule(const void* p, const void* q, int64_t row_bytes, int elem) {
-  const auto at = [](const void* v) { return reinterpret_cast<uintptr_t>(v); };
-  for (int g = 16; g >= 4; g /= 2)
-    if (at(p) % g == 0 && at(q) % g == 0 && row_bytes % g == 0) return g;
-  return elem;
+template <typename T, bool kSave>
+void launch_as(bool full, dim3 grid, cudaStream_t st, const T* x,
+               const T* dt, const T* bm, const T* cm, const float* a,
+               const float* dskip, const float* h0, T* y, float* h_last,
+               float* states, int64_t S, int64_t Di, int N, int gx, int gb) {
+  if (full)
+    scan_kernel<T, true, kSave><<<grid, kThreads, 0, st>>>(
+        x, dt, bm, cm, a, dskip, h0, y, h_last, states, S, Di, N, gx, gb);
+  else
+    scan_kernel<T, false, kSave><<<grid, kThreads, 0, st>>>(
+        x, dt, bm, cm, a, dskip, h0, y, h_last, states, S, Di, N, gx, gb);
 }
 
 template <typename T>
 int launch(const T* x, const T* dt, const T* bm, const T* cm, const float* a,
            const float* dskip, const float* h0, T* y, float* h_last,
-           int64_t Bz, int64_t S, int64_t Di, int N, cudaStream_t st) {
+           float* states, int64_t Bz, int64_t S, int64_t Di, int N,
+           cudaStream_t st) {
   const int sz = (int)sizeof(T);
   const int gx = granule(x, dt, Di * sz, sz);
   const int gb = granule(bm, cm, S * N * sz, sz);
-  const auto at16 = [](const void* v) {
-    return reinterpret_cast<uintptr_t>(v) % 16 == 0;
-  };
   const dim3 grid((unsigned)((Di + kCh - 1) / kCh), (unsigned)Bz);
-  if (N == kMaxN && at16(a) && at16(h0) && at16(h_last))
-    scan_kernel<T, true><<<grid, kThreads, 0, st>>>(
-        x, dt, bm, cm, a, dskip, h0, y, h_last, S, Di, N, gx, gb);
+  const bool full = N == kMaxN && at16(a) && at16(h0) && at16(h_last) &&
+                    (states == nullptr || at16(states));
+  if (states == nullptr)
+    launch_as<T, false>(full, grid, st, x, dt, bm, cm, a, dskip, h0, y,
+                        h_last, states, S, Di, N, gx, gb);
   else
-    scan_kernel<T, false><<<grid, kThreads, 0, st>>>(
-        x, dt, bm, cm, a, dskip, h0, y, h_last, S, Di, N, gx, gb);
+    launch_as<T, true>(full, grid, st, x, dt, bm, cm, a, dskip, h0, y,
+                       h_last, states, S, Di, N, gx, gb);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // x, dt, y (Bz, S, Di); bm, cm (Bz, S, N); a (Di, N); dskip (Di,); h0 and
-// h_last (Bz, Di, N): all contiguous, N <= 16; x, dt, bm, cm, y bf16 when
-// `bf16` is set, else float32; a, dskip, h0, h_last float32. One launch on
-// `stream` of `device`; returns cudaGetLastError() (0 on success).
+// h_last (Bz, Di, N); states null, or (Bz, ceil(S / 16), Di, N) to receive
+// h at the end of every 16-step round: all contiguous, N <= 16; x, dt, bm,
+// cm, y bf16 when `bf16` is set, else float32; a, dskip, h0, h_last,
+// states float32. One launch on `stream` of `device`; returns
+// cudaGetLastError() (0 on success).
 extern "C" int selective_scan(const void* x, const void* dt, const void* bm,
                               const void* cm, const float* a,
                               const float* dskip, const float* h0, void* y,
-                              float* h_last, int64_t Bz, int64_t S,
-                              int64_t Di, int64_t N, int bf16, void* stream,
-                              int device) {
+                              float* h_last, float* states, int64_t Bz,
+                              int64_t S, int64_t Di, int64_t N, int bf16,
+                              void* stream, int device) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (N > kMaxN) return (int)cudaErrorInvalidValue;
@@ -334,11 +241,11 @@ extern "C" int selective_scan(const void* x, const void* dt, const void* bm,
     using T = __nv_bfloat16;
     return launch(static_cast<const T*>(x), static_cast<const T*>(dt),
                   static_cast<const T*>(bm), static_cast<const T*>(cm), a,
-                  dskip, h0, static_cast<T*>(y), h_last, Bz, S, Di, (int)N,
-                  st);
+                  dskip, h0, static_cast<T*>(y), h_last, states, Bz, S, Di,
+                  (int)N, st);
   }
   return launch(static_cast<const float*>(x), static_cast<const float*>(dt),
                 static_cast<const float*>(bm), static_cast<const float*>(cm),
-                a, dskip, h0, static_cast<float*>(y), h_last, Bz, S, Di,
-                (int)N, st);
+                a, dskip, h0, static_cast<float*>(y), h_last, states, Bz, S,
+                Di, (int)N, st);
 }

@@ -3,7 +3,7 @@
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` into its own shared library
 with a plain C interface, bound through :mod:`ctypes`. The five simulation
 kernels are held bit-equal to float64 oracles and build with
-``-fmad=false`` (no FMA contraction); the three model kernels are held to
+``-fmad=false`` (no FMA contraction); the four model kernels are held to
 a tolerance and build without it (:func:`nvcc_flags`). Libraries are built
 at first use (every source in parallel, one ``nvcc`` each) into
 ``build/kernels/`` at the repository root, under a file name that carries a
@@ -36,7 +36,8 @@ BUILD_DIR = _PKG.parent.parent / "build" / "kernels"
 EXACT_KERNELS = ("event_engine", "net_rerate", "strategy_plan", "st_cost",
                  "value_score")
 #: the model kernels of the serving and training paths, held to a tolerance
-MODEL_KERNELS = ("flash_attention", "selective_scan", "flash_attention_bwd")
+MODEL_KERNELS = ("flash_attention", "selective_scan", "flash_attention_bwd",
+                 "selective_scan_bwd")
 KERNELS = EXACT_KERNELS + MODEL_KERNELS
 _BASE_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -71,8 +72,9 @@ _SIGNATURES = {
                                                        _F32, _VP, _VP, _VP,
                                                        _INT]),
     "selective_scan": ("selective_scan",
-                       [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I64,
-                        _I64, _I64, _I64, _INT, _VP, _INT]),
+                       [_VP] * 10 + [_I64] * 4 + [_INT, _VP, _INT]),
+    "selective_scan_bwd": ("selective_scan_bwd",
+                           [_VP] * 21 + [_I64] * 4 + [_INT, _VP, _INT]),
 }
 
 _lock = threading.Lock()

@@ -77,7 +77,8 @@ class KernelSpec:
       max_rank: max rank of any tensor the plain version makes.
       budget_bytes: peak-bytes budget at the audit shapes (see module doc).
       make_inputs: audit-shape builder, ``make_inputs(device)``.
-      make_small_inputs: small-shape builder (simulation kernels).
+      make_small_inputs: the small-shape inputs (simulation kernels, and
+        the scan backward's ragged edges).
       multi_output: the reference kernel returns a tuple.
       arg_units: dimension per operand (:attr:`InputCase.operands`).
       out_units: dimension per output of the reference kernel.
@@ -292,6 +293,31 @@ def _flash_attention_bwd_inputs(B: int, H: int, KV: int, S: int, hd: int,
     return InputCase(args, {"causal": True}, args)
 
 
+def _selective_scan_bwd_inputs(Bz: int, S: int, Di: int, N: int,
+                               seed: int = 2, device="cpu") -> InputCase:
+    """float32 x, dt, B, C, A, D and a nonzero h0 drawn from ``seed`` as the
+    forward's audit inputs; the round states from the plain forward on the
+    same device, as the training path saves them; dy and a nonzero
+    dh_last."""
+    # imported here: the kernel packages import this module as they load
+    from .selective_scan.kernel import round_states
+    from .selective_scan.ref import selective_scan_ref
+
+    rng = np.random.default_rng(seed)
+    n = lambda *s: rng.standard_normal(s).astype(np.float32)  # noqa: E731
+    x = n(Bz, S, Di)
+    dt = (np.log1p(np.exp(n(Bz, S, Di))) * 0.1).astype(np.float32)
+    B, C = n(Bz, S, N), n(Bz, S, N)
+    A = (-np.exp(n(Di, N))).astype(np.float32)
+    D, h0, dy, dh_last = n(Di), n(Bz, Di, N), n(Bz, S, Di), n(Bz, Di, N)
+    x, dt, B, C, A, D, h0, dy, dh_last = (
+        _t(a, device) for a in (x, dt, B, C, A, D, h0, dy, dh_last))
+    states = round_states(x, h0)
+    selective_scan_ref(x, dt, B, C, A, D, h0, states)
+    args = (x, dt, B, C, A, D, h0, states, dy, dh_last)
+    return InputCase(args, {}, args)
+
+
 #: The network kernels read their minimum back from a page-locked host word
 #: the launch writes before its stream sync (``kernels/net_call.py``).
 _MAPPED_WORD = ("one stream sync per call, then a read of the mapped "
@@ -388,6 +414,27 @@ FLASH_ATTENTION_SPEC = KernelSpec(
     arg_units=("score", "score", "score"),
     out_units=("score",),
     tol=2e-5,               # float32's, as tests/test_kernels.py
+)
+#: No reference SPEC: the reference differentiates its jnp scan. The budget
+#: is the call's bytes at the forward's audit shape (Bz 1, S 512, Di 256,
+#: N 16): its inputs (2,212,864: x, dt and dy 1,572,864, the 32 round
+#: states 524,288), its outputs (1,147,904) and the float32 partials of dB,
+#: dC, dA and dD (279,552), 3,640,320 in all, held to 3,700,000. The small
+#: inputs take the kernel's ragged edges: S past a round, Di past a
+#: 64-channel block, N below 16.
+SELECTIVE_SCAN_BWD_SPEC = KernelSpec(
+    name="selective_scan_bwd", module="repro_torch.kernels.selective_scan_bwd",
+    kernel_attr="selective_scan_bwd_kernel",
+    ref_attr="selective_scan_bwd_ref",
+    domain="model", max_rank=4, budget_bytes=3_700_000,
+    make_inputs=lambda device="cpu": _selective_scan_bwd_inputs(
+        1, 512, 256, 16, device=device),
+    make_small_inputs=lambda device="cpu": _selective_scan_bwd_inputs(
+        2, 37, 100, 7, device=device),
+    multi_output=True,
+    arg_units=("score",) * 10,
+    out_units=("score",) * 7,
+    tol=2e-4,               # ten times float32's, as the forward's
 )
 #: No reference SPEC: the reference has no backward kernel. The budget is the
 #: call's bytes at the audit shape: its inputs (528,384), dq, dk and dv

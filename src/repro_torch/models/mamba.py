@@ -2,10 +2,14 @@
 
 The recurrence runs through the selective-scan op: on CUDA tensors the
 hand-written kernel (``csrc/selective_scan.cu``), on CPU tensors its plain
-sequential version. The skip term ``D * x`` is folded into the op, as the
-TPU kernel folds it. Mamba-2 (zamba2) is not ported yet (ROADMAP queue 1),
-nor is the scan's backward kernel: Mamba-1 trains on the CPU only
-(:func:`check_trainable`).
+sequential version. In training (``train=True``) it runs through
+:class:`~repro_torch.kernels.selective_scan.SelectiveScanFn` on every
+device: the forward saves the state at the end of every 16-step round and
+the backward is the hand-written ``csrc/selective_scan_bwd.cu`` on CUDA
+tensors, its plain reverse loop on CPU tensors. The conv, projections,
+softplus and gating stay plain PyTorch under autograd. The skip term
+``D * x`` is folded into the op, as the TPU kernel folds it. Mamba-2
+(zamba2) is not ported yet (ROADMAP queue 1).
 """
 
 from __future__ import annotations
@@ -13,20 +17,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from ..kernels.selective_scan import selective_scan
+from ..kernels.selective_scan import selective_scan, selective_scan_train
 from .common import normal_init, silu
-
-
-def check_trainable(device: torch.device) -> None:
-    """Mamba-1 blocks train on the CPU only, through the plain scan under
-    autograd: ``selective_scan``'s backward kernel is not ported yet
-    (ROADMAP queue 1), and on the card the plain version never stands in
-    for a kernel."""
-    if device.type == "cuda":
-        raise NotImplementedError(
-            "training mamba1 blocks on the card needs selective_scan's "
-            "backward kernel, which is not ported to repro_torch yet "
-            "(ROADMAP queue 1); train on device='cpu'")
 
 
 def causal_conv1d(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
@@ -75,9 +67,10 @@ def init_mamba1(gen: torch.Generator, d_model: int, ssm,
 
 
 def mamba1_forward(params: dict, x: torch.Tensor, ssm, *, state=None,
-                   backend: str = "auto"):
+                   backend: str = "auto", train: bool = False):
     """x: (B, S, D). ``state``: optional (conv_state (B, K-1, Di),
-    ssm_state (B, Di, N) float32) to continue from. Returns
+    ssm_state (B, Di, N) float32) to continue from. ``train``: the scan
+    under autograd (:func:`selective_scan_train`). Returns
     (y, (new_conv_state, h_last))."""
     B, S, D = x.shape
     N = ssm.state_dim
@@ -94,8 +87,9 @@ def mamba1_forward(params: dict, x: torch.Tensor, ssm, *, state=None,
     A = -torch.exp(params["A_log"])
     h0 = (torch.zeros((B, xc.shape[-1], N), dtype=torch.float32,
                       device=x.device) if state is None else state[1])
-    y, h_last = selective_scan(xc, dt, B_ssm, C_ssm, A, params["D_skip"],
-                               h0, backend=backend)
+    scan = selective_scan_train if train else selective_scan
+    y, h_last = scan(xc, dt, B_ssm, C_ssm, A, params["D_skip"], h0,
+                     backend=backend)
     y = (y.to(x.dtype) * silu(z)) @ params["out_proj"]
     return y, (new_conv, h_last)
 

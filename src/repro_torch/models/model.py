@@ -10,9 +10,10 @@ step.
   params_from_jax(cfg, tree)                   -> params
 
 ``batch`` is a dict of ``tokens`` and ``labels``, (B, S) integers.
-Decoder-only models with ``attn``, ``attn_local`` and ``mamba1`` blocks;
-``mamba1`` trains on the CPU only (``selective_scan``'s backward kernel is
-not ported yet). The encoder-decoder and VLM front ends and the other block
+Decoder-only models with ``attn``, ``attn_local`` and ``mamba1`` blocks,
+each served and trained on the card through its hand-written kernels
+(attention trains there in bf16 only: the float32 flash backward is not
+ported yet). The encoder-decoder and VLM front ends and the other block
 kinds raise ``NotImplementedError`` (ROADMAP queue 1). On one card there is
 no activation sharding, so the reference's ``shardctx.anchor_batch`` has no
 counterpart.

@@ -22,8 +22,9 @@ writes its token's K/V at slot ``pos``.
 
 Blocks ``attn``, ``attn_local`` and ``mamba1`` are ported; ``mamba2``,
 ``shared_attn`` and MoE feed-forward raise ``NotImplementedError`` (ROADMAP
-queue 1). ``mamba1`` trains on the CPU only: ``selective_scan``'s backward
-kernel is not ported yet.
+queue 1). In train mode ``mamba1`` runs its scan through
+:class:`~repro_torch.kernels.selective_scan.SelectiveScanFn` (the CUDA
+forward and backward kernels on the card).
 """
 
 from __future__ import annotations
@@ -34,7 +35,7 @@ from torch.utils.checkpoint import checkpoint
 from ..configs.base import ArchConfig
 from .attention import attention_blockwise, attention_decode, attention_train
 from .common import ACTS, normal_init, rms_norm, rope
-from .mamba import check_trainable, init_mamba1, mamba1_decode, mamba1_forward
+from .mamba import init_mamba1, mamba1_decode, mamba1_forward
 from .mlp import gated_mlp, init_gated_mlp
 
 ATTN_KINDS = ("attn", "attn_local")
@@ -136,8 +137,8 @@ def apply_block(cfg: ArchConfig, kind: str, p: dict, x: torch.Tensor, *,
         raise _not_ported(f"block kind {kind!r}")
     h = rms_norm(x, p["ln"])
     if mode == "train":
-        check_trainable(x.device)
-        y, _ = mamba1_forward(p["mixer"], h, cfg.ssm, backend=backend)
+        y, _ = mamba1_forward(p["mixer"], h, cfg.ssm, backend=backend,
+                              train=True)
         return x + y, None
     if mode == "prefill":
         y, (conv, ssm_state) = mamba1_forward(p["mixer"], h, cfg.ssm,

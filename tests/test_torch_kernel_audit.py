@@ -2,7 +2,7 @@
 (``repro_torch.kernels.registry``, ``repro_torch.kernels.spec``,
 ``repro_torch.analysis.kernel_audit``).
 
-The registry finds exactly the eight kernel packages; each SPEC of the
+The registry finds exactly the nine kernel packages; each SPEC of the
 seven TPU kernels' counterparts carries the reference SPEC's domain, rank
 cap, unit signature and audit shapes (``repro.kernels``, which imports no
 JAX), and its budget, doubled for the float64 simulation kernels; its
@@ -10,8 +10,11 @@ inputs are the reference's draws in float64, and its plain version at them
 gives the reference oracle's result. ``flash_attention_bwd`` has no
 reference SPEC (the reference has no backward kernel): its SPEC is the
 port's own, its plain version at its audit inputs the exact float64
-gradient up to its bf16 rounding convention. The CPU half of the audit
-passes for all eight and flags toy
+gradient up to its bf16 rounding convention. ``selective_scan_bwd`` has
+none either (the reference differentiates its jnp scan): its SPEC's
+small and audit inputs carry the forward's round states, and its plain
+version at them is the float64 gradient within its tolerance. The CPU
+half of the audit passes for all nine and flags toy
 plain versions that broadcast to rank 3, overrun their budget, hold the
 wrong float dtype or read a value back to the host. The card half runs
 under ``-m gpu`` (this file's imports need no JAX, so it runs on the
@@ -36,7 +39,7 @@ from repro_torch.kernels.spec import InputCase
 #: the counterparts of the reference's kernels, each with a reference SPEC
 REF_NAMES = ["event_engine", "flash_attention", "net_rerate",
              "selective_scan", "st_cost", "strategy_plan", "value_score"]
-NAMES = sorted(REF_NAMES + ["flash_attention_bwd"])
+NAMES = sorted(REF_NAMES + ["flash_attention_bwd", "selective_scan_bwd"])
 SIM = ["event_engine", "net_rerate", "st_cost", "strategy_plan",
        "value_score"]
 
@@ -157,6 +160,42 @@ def test_bwd_spec_and_inputs():
     for g, leaf in zip(got, leaves):
         scale = float(leaf.grad.abs().max())
         np.testing.assert_allclose(g.double().numpy(), leaf.grad.numpy(),
+                                   atol=spec.tol * scale, rtol=spec.tol)
+
+
+@pytest.mark.parametrize("small", [True, False], ids=["small", "audit"])
+def test_scan_bwd_spec_and_inputs(small):
+    """selective_scan_bwd's own SPEC: float32 inputs with the round states
+    of the plain forward, a nonzero h0 and dh_last; the audit call's bytes
+    within the budget; its plain version at the inputs is the float64
+    gradient (autograd through the plain forward) within the SPEC's
+    tolerance."""
+    from repro_torch.kernels.selective_scan import selective_scan_ref
+
+    spec = get_kernel_spec("selective_scan_bwd")
+    case = (spec.make_small_inputs if small else spec.make_inputs)("cpu")
+    assert spec.domain == "model" and spec.multi_output and spec.tol == 2e-4
+    assert all(t.dtype == torch.float32 for t in case.operands)
+    x, dt, B, C, A, D, h0, states, dy, dh_last = case.operands
+    Bz, S, Di = x.shape
+    assert states.shape == (Bz, -(-S // 16), Di, B.shape[-1])
+    assert bool(h0.abs().max() > 0) and bool(dh_last.abs().max() > 0)
+    if not small:
+        nbytes = lambda ts: sum(t.numel() * t.element_size()  # noqa: E731
+                                for t in ts)
+        outputs = nbytes((x, dt, B, C, A, D, h0))
+        partials = 4 * (2 * Bz * S * -(-Di // 64) * B.shape[-1]
+                        + Bz * Di * B.shape[-1] + Bz * Di)
+        assert nbytes(case.operands) + outputs + partials \
+            <= spec.budget_bytes
+    got = spec.load_ref()(*case.args, **case.kwargs)
+    leaves = [t.double().requires_grad_() for t in (x, dt, B, C, A, D, h0)]
+    y, h = selective_scan_ref(*leaves)
+    want = torch.autograd.grad((y * dy.double()).sum()
+                               + (h * dh_last.double()).sum(), leaves)
+    for g, w in zip(got, want):
+        scale = float(w.abs().max())
+        np.testing.assert_allclose(g.double().numpy(), w.numpy(),
                                    atol=spec.tol * scale, rtol=spec.tol)
 
 

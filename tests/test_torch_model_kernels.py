@@ -1,4 +1,4 @@
-"""The serving path's two CUDA kernels against their plain versions.
+"""The model paths' CUDA kernels against their plain versions.
 
 No JAX here, so the file runs on the card's machine:
 ``pytest -m gpu tests/test_torch_model_kernels.py``. On the CPU it holds the
@@ -11,9 +11,16 @@ every head dim, a call replayed from a CUDA graph), the scan's edges
 (every state width, ragged rounds and channel tiles, rows off a 16-byte
 boundary, a call replayed from a CUDA graph) — at that file's
 tolerances: ``TOL`` for attention, ten times ``TOL`` for the scan (1,024
-steps of a recurrence in another rounding order). The plain versions are
-held against the reference's by ``test_torch_attention.py`` and
-``test_torch_ssm.py``.
+steps of a recurrence in another rounding order). The training path's
+backwards likewise: ``flash_attention_bwd`` at ``TOL``, and the scan's
+forward with round states (y and h_last bit-equal to the serving
+forward's) and ``selective_scan_bwd`` (``SCAN_BWD``: the training shape,
+ragged rounds, channel blocks and state widths, with and without
+dh_last) at ten times float32's ``TOL``, bf16's ``TOL`` in bf16, each
+relative to the output's largest entry, bit-equal over two calls. The
+plain versions are held against the reference's by
+``test_torch_attention.py``, ``test_torch_ssm.py`` and
+``test_torch_scan_bwd.py``.
 """
 
 import numpy as np
@@ -31,9 +38,13 @@ from repro_torch.kernels.flash_attention import (attention_mask,
                                                  plan_launch)
 from repro_torch.kernels.flash_attention_bwd import (
     flash_attention_bwd_kernel, flash_attention_bwd_ref)
-from repro_torch.kernels.selective_scan import (selective_scan,
+from repro_torch.kernels.selective_scan import (round_states,
+                                                selective_scan,
                                                 selective_scan_kernel,
-                                                selective_scan_ref)
+                                                selective_scan_ref,
+                                                selective_scan_train)
+from repro_torch.kernels.selective_scan_bwd import (selective_scan_bwd_kernel,
+                                                    selective_scan_bwd_ref)
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 GRID_IDS = "B,H,KV,Sq,Skv,hd,causal,window,softcap"
@@ -107,6 +118,15 @@ SCAN = [(2, 64, 32, 8), (1, 128, 64, 16), (2, 96, 48, 4), (1, 256, 128, 16),
         # every N the four lanes of four states a channel can hold, the
         # surplus masked off (N = 16: the vector path)
         *[(2, 40, 96, n) for n in range(1, 17)]]
+
+#: the scan backward: falcon-mamba-7b's training shape, one round, S not a
+#: multiple of the 16-step round, S = 1, Di not a multiple of the
+#: 64-channel block, N below 16 (the masked states)
+SCAN_BWD = [(4, 1024, 8192, 16), (1, 16, 64, 16), (2, 17, 64, 16),
+            (1, 33, 128, 5), (2, 1, 100, 16), (3, 70, 200, 8),
+            (1, 19, 37, 7), (2, 40, 96, 1), (2, 100, 130, 16)]
+#: the scan backward's tolerance, relative to each output's largest entry
+BWD_TOL = {"float32": 10 * TOL["float32"], "bfloat16": TOL["bfloat16"]}
 
 
 def _qkv(seed, B, H, KV, Sq, Skv, hd, dtype="float32", device="cpu"):
@@ -571,3 +591,150 @@ def test_cuda_flash_autograd_matches_plain(window, softcap):
                                    rtol=TOL["bfloat16"])
     with pytest.raises(ValueError, match="bf16 only"):
         grads("auto", torch.float32)
+
+
+# -- the scan backward ----------------------------------------------------------
+
+def _scan_bwd_inputs(seed, Bz, S, Di, N, dtype="float32", device="cpu"):
+    """The scan's inputs (nonzero h0), dy in ``dtype`` and a float32
+    dh_last."""
+    args = _scan_inputs(seed, Bz, S, Di, N, dtype, device)
+    rng = np.random.default_rng(seed + 1)
+    dy = torch.tensor(rng.standard_normal((Bz, S, Di), np.float32),
+                      device=device).to(getattr(torch, dtype))
+    dh_last = torch.tensor(rng.standard_normal((Bz, Di, N), np.float32),
+                           device=device)
+    return args, dy, dh_last
+
+
+def _close_to_largest(got, want, tol):
+    """Within ``tol`` of ``want``, relative to its largest entry."""
+    assert got.shape == want.shape and got.dtype == want.dtype
+    want = _f32(want)
+    scale = max(float(np.abs(want).max(initial=0.0)), 1e-30)
+    np.testing.assert_allclose(_f32(got), want, rtol=tol, atol=tol * scale)
+
+
+def test_scan_bwd_kernel_checks():
+    """The backward kernel takes CUDA tensors of the forward's dtypes and
+    widths; nothing on the CPU launches it."""
+    args, dy, dh_last = _scan_bwd_inputs(5, 1, 20, 8, 4)
+    states = round_states(args[0], args[6])
+    selective_scan_ref(*args, states)
+    before = dict(_cuda.LAUNCHES)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        selective_scan_bwd_kernel(*args, states, dy, dh_last)
+    with pytest.raises(ValueError, match="dtype"):
+        selective_scan_bwd_kernel(*(t.double() for t in args),
+                                  states.double(), dy.double())
+    wide, wdy, _ = _scan_bwd_inputs(5, 1, 4, 8, 32)
+    with pytest.raises(ValueError, match="state width 32"):
+        selective_scan_bwd_kernel(*wide, round_states(wide[0], wide[6]), wdy)
+    assert round_states(args[0], args[6]).shape == (1, 2, 8, 4)
+    assert _cuda.LAUNCHES == before
+
+
+def test_scan_train_routes():
+    """SelectiveScanFn on CPU tensors: the plain forward and backward
+    (its gradients are the plain backward's on the saved states);
+    backend="cuda" raises rather than fall back."""
+    args, dy, _ = _scan_bwd_inputs(6, 2, 21, 12, 4)
+    leaves = [t.clone().requires_grad_() for t in args]
+    before = dict(_cuda.LAUNCHES)
+    y, h = selective_scan_train(*leaves)
+    ry, rh = selective_scan_ref(*args)
+    assert torch.equal(y.detach(), ry) and torch.equal(h.detach(), rh)
+    y.backward(dy)
+    states = round_states(args[0], args[6])
+    selective_scan_ref(*args, states)
+    want = selective_scan_bwd_ref(*args, states, dy)
+    for leaf, w in zip(leaves, want):
+        assert torch.equal(leaf.grad, w)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        selective_scan_train(*leaves, backend="cuda")
+    with pytest.raises(ValueError, match="unknown backend"):
+        selective_scan_train(*leaves, backend="interpret")
+    assert _cuda.LAUNCHES == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("Bz,S,Di,N", SCAN_BWD)
+def test_cuda_scan_states_match_plain(Bz, S, Di, N, dtype):
+    """The forward with round states: y and h_last bit-equal to the
+    forward without, the states within tolerance of the plain loop's, the
+    last one h_last itself."""
+    dev = _card()
+    args = _scan_inputs(S * N + Di, Bz, S, Di, N, dtype, dev)
+    y0, h0 = selective_scan_kernel(*args)
+    states = round_states(args[0], args[6])
+    y, h = selective_scan_kernel(*args, states)
+    assert torch.equal(y, y0) and torch.equal(h, h0)
+    assert torch.equal(states[:, -1], h)
+    want = round_states(args[0], args[6])
+    selective_scan_ref(*args, want)
+    _close_to_largest(states, want, BWD_TOL["float32"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("with_dh_last", [True, False], ids=["dh", "nodh"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("Bz,S,Di,N", SCAN_BWD)
+def test_cuda_scan_bwd_matches_plain(Bz, S, Di, N, dtype, with_dh_last):
+    """Every gradient against the plain backward on the same inputs and
+    the kernel forward's states."""
+    dev = _card()
+    args, dy, dh_last = _scan_bwd_inputs(S + Di + N, Bz, S, Di, N, dtype,
+                                         dev)
+    dh_last = dh_last if with_dh_last else None
+    states = round_states(args[0], args[6])
+    selective_scan_kernel(*args, states)
+    before = _cuda.LAUNCHES["selective_scan_bwd"]
+    got = selective_scan_bwd_kernel(*args, states, dy, dh_last)
+    assert _cuda.LAUNCHES["selective_scan_bwd"] == before + 1
+    want = selective_scan_bwd_ref(*args, states, dy, dh_last)
+    for g, w in zip(got, want):
+        _close_to_largest(g, w, BWD_TOL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("Bz,S,Di,N", [SCAN_BWD[0], SCAN_BWD[5],
+                                       SCAN_BWD[8]])
+def test_cuda_scan_bwd_is_deterministic(Bz, S, Di, N):
+    """Two calls on the same inputs are bit-equal: the sums over lanes,
+    channels, blocks, batch and time run in a fixed order, no float
+    atomics."""
+    dev = _card()
+    args, dy, dh_last = _scan_bwd_inputs(Bz + S, Bz, S, Di, N,
+                                         device=dev)
+    states = round_states(args[0], args[6])
+    selective_scan_kernel(*args, states)
+    first = [t.clone() for t in selective_scan_bwd_kernel(
+        *args, states, dy, dh_last)]
+    second = selective_scan_bwd_kernel(*args, states, dy, dh_last)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_scan_autograd_matches_plain(dtype):
+    """SelectiveScanFn on the kernels against backend="plain" on the
+    card, both outputs used, h0 a leaf: one forward with states and one
+    backward launched."""
+    dev = _card()
+    args, dy, dh_last = _scan_bwd_inputs(9, 2, 50, 160, 16, dtype, dev)
+
+    def grads(backend):
+        leaves = [t.clone().requires_grad_() for t in args]
+        y, h = selective_scan_train(*leaves, backend=backend)
+        torch.autograd.backward((y, h), (dy, dh_last))
+        return [t.grad for t in leaves]
+
+    before = dict(_cuda.LAUNCHES)
+    got = grads("auto")
+    assert _cuda.LAUNCHES["selective_scan"] == before["selective_scan"] + 1
+    assert (_cuda.LAUNCHES["selective_scan_bwd"]
+            == before["selective_scan_bwd"] + 1)
+    for g, w in zip(got, grads("plain")):
+        _close_to_largest(g, w, BWD_TOL[dtype])

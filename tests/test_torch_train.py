@@ -1,7 +1,7 @@
 """The port's training path (``repro_torch.models.model.loss_fn``,
 ``repro_torch.train.train_step``, ``repro_torch.launch.train``) against the
-reference's at the reduced gemma3-1b, on the CPU (the plain versions of
-the kernels).
+reference's at the reduced gemma3-1b and the reduced falcon-mamba-7b, on
+the CPU (the plain versions of the kernels).
 
 * the loss and every gradient leaf against ``jax.value_and_grad`` of
   ``repro.models.model.loss_fn``, the reference's parameters carried by
@@ -16,9 +16,15 @@ the kernels).
 * ``compress_grads``: the step carries the int8 error feedback in the
   optimizer state, step for step equal to ``adamw_update`` given that
   state by hand, and the launcher's ``--compress-grads`` checkpoints it;
-* one step with finite loss and gradients for every registered config,
-  falcon-mamba's Mamba-1 blocks included (on the CPU; on the card they
-  raise, checked through ``check_trainable``);
+* falcon-mamba-7b's Mamba-1 blocks: the loss and every gradient leaf
+  against ``jax.value_and_grad`` (float32 at 1e-5, observed ~1.2e-6; bf16
+  at 2e-2, observed ~7e-3: the reference's associative scan needs no more
+  than gemma3-1b's tolerances), one whole train step against
+  ``make_train_step``, remat against none; train mode reaches
+  ``SelectiveScanFn`` (the scan's forward and backward in one
+  ``autograd.Function``, no graph over time), and ``backend="cuda"`` on
+  CPU tensors raises rather than fall back;
+* one step with finite loss and gradients for every registered config;
 * the launcher's loss falls over 20 steps on the CPU, and without
   ``--device cpu`` it asks for the card.
 """
@@ -39,7 +45,7 @@ from repro.train.train_step import make_train_step as jax_train_step
 from repro_torch.configs import arch_ids, get_config
 from repro_torch.launch import train as launch_train
 from repro_torch.models import model as M
-from repro_torch.models.mamba import check_trainable
+from repro_torch.kernels.selective_scan import SelectiveScanFn
 from repro_torch.checkpoint.ckpt import restore_checkpoint
 from repro_torch.train.optimizer import (OptimizerConfig, adamw_update,
                                          init_compress_state, init_opt_state,
@@ -49,6 +55,7 @@ from repro_torch.train.train_step import (TrainConfig, grad_fn,
 
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 B, S = 2, 40                   # longer than the reduced 32-key window
+MAMBA = "falcon-mamba-7b"
 
 
 def _reference(dtype, arch="gemma3-1b"):
@@ -103,9 +110,8 @@ def _close(got, want, tol):
     np.testing.assert_allclose(got, want, rtol=tol, atol=tol * scale)
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_loss_and_gradients_match_reference(dtype):
-    cfg, jcfg, jp, p = _reference(dtype)
+def _check_loss_and_gradients(dtype, arch):
+    cfg, jcfg, jp, p = _reference(dtype, arch)
     batch = _batch(cfg)
     (jl, jm), jg = jax.value_and_grad(
         lambda q: JM.loss_fn(jcfg, q, {k: jnp.asarray(v)
@@ -121,6 +127,18 @@ def test_loss_and_gradients_match_reference(dtype):
         t.dtype for t in tree_leaves(p)]
     for name, got, want in pairs:
         _close(got, want, TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_loss_and_gradients_match_reference(dtype):
+    _check_loss_and_gradients(dtype, "gemma3-1b")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mamba_loss_and_gradients_match_reference(dtype):
+    """Every Mamba-1 leaf (A_log and D_skip through the scan's backward,
+    the conv, projections and dt through what it hands back)."""
+    _check_loss_and_gradients(dtype, MAMBA)
 
 
 def test_train_logits_match_reference():
@@ -156,7 +174,17 @@ def test_chunked_cross_entropy_matches_reference():
 def test_microbatches_and_remat_agree():
     """Two microbatches give the mean of their halves' gradients in
     float32; remat recomputes the same forward."""
-    cfg, _, _, p = _reference("float32")
+    _check_microbatches_and_remat("gemma3-1b")
+
+
+def test_mamba_microbatches_and_remat_agree():
+    """The same through Mamba-1 blocks: remat runs the scan's forward
+    twice, and the backward reads the recomputed round states."""
+    _check_microbatches_and_remat(MAMBA)
+
+
+def _check_microbatches_and_remat(arch):
+    cfg, _, _, p = _reference("float32", arch)
     batch = _as_torch(_batch(cfg, b=4))
     l1, _, g1 = grad_fn(cfg, TrainConfig(), p, batch)
     l2, m2, g2 = grad_fn(cfg, TrainConfig(n_microbatches=2), p, batch)
@@ -176,8 +204,16 @@ def test_train_step_matches_reference():
     the update a smooth function of the gradient (at the default 1e-8,
     ``m / sqrt(v)`` is the sign of a first-step gradient, which float32
     noise flips where the gradient is near zero)."""
+    _check_train_step("gemma3-1b")
+
+
+def test_mamba_train_step_matches_reference():
+    _check_train_step(MAMBA)
+
+
+def _check_train_step(arch):
     opt = dict(peak_lr=1e-3, warmup_steps=1, total_steps=10, eps=1e-3)
-    cfg, jcfg, jp, p = _reference("float32")
+    cfg, jcfg, jp, p = _reference("float32", arch)
     batch = _batch(cfg)
     jstep = jax.jit(jax_train_step(jcfg, JTrain(opt=JOpt(**opt))))
     jnew, jstate, jm = jstep(jp, jax_opt_state(jp),
@@ -263,13 +299,34 @@ def test_one_step_is_finite_for_every_config(arch):
                                                       tree_leaves(p)))
 
 
-def test_mamba_trains_on_the_cpu_only():
-    """The check train mode runs before a Mamba-1 block: on a CUDA device
-    it raises (selective_scan's backward kernel is not ported), with no
-    fall-back to the plain scan on the card."""
-    check_trainable(torch.device("cpu"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        check_trainable(torch.device("cuda", 0))
+def test_mamba_train_mode_reaches_selective_scan_fn(monkeypatch):
+    """A train-mode Mamba-1 block runs its scan through SelectiveScanFn,
+    once a layer (no remat) with the backend it was given; prefill does
+    not."""
+    cfg, _, _, p = _reference("float32", MAMBA)
+    seen = []
+    apply = SelectiveScanFn.apply
+
+    def spy(*args):
+        seen.append(args[-1])
+        return apply(*args)
+
+    monkeypatch.setattr(SelectiveScanFn, "apply", spy)
+    batch = _as_torch(_batch(cfg))
+    grad_fn(cfg, TrainConfig(remat=False), p, batch, backend="plain")
+    assert seen == ["plain"] * cfg.n_layers
+    M.prefill(cfg, p, batch["tokens"],
+              caches=M.init_caches(cfg, B, S, device="cpu"))
+    assert len(seen) == cfg.n_layers
+
+
+def test_mamba_train_on_cpu_tensors_with_cuda_backend_raises():
+    """backend="cuda" on CPU tensors raises in the scan's forward rather
+    than fall back to the plain version."""
+    cfg, _, _, p = _reference("float32", MAMBA)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        grad_fn(cfg, TrainConfig(), p, _as_torch(_batch(cfg)),
+                backend="cuda")
 
 
 def test_launcher_loss_falls_on_the_cpu(capsys, tmp_path):

@@ -375,7 +375,7 @@ def test_list_rules_groups_by_family():
 def test_all_kernel_specs_declare_unit_signatures():
     from repro_torch.kernels import registered_kernels
     specs = registered_kernels()
-    assert len(specs) == 8      # the seven TPU kernels' and the backward
+    assert len(specs) == 9      # the seven TPU kernels' and two backwards
     for name, spec in specs.items():
         case = spec.make_inputs("cpu")
         assert check_unit_signature(spec, len(case.operands)), name
