@@ -14,9 +14,16 @@ Phases, each raising on failure (the script then exits non-zero):
    ``flash_attention`` kernel from ``cuobjdump -sass`` (each bf16
    tensor-core prefill kernel must have some) and the warpgroup products
    (``HGMMA``) of every ``flash_attention_bwd`` kernel (the dK/dV and the
-   dQ kernel of each head dim must have some), and the non-coherent loads
+   dQ kernel of each head dim must have some), the non-coherent loads
    of the network cluster kernels (none may be narrower than 64 bits: their
-   int32 path rows are written and read in one launch);
+   int32 path rows are written and read in one launch), and the
+   exponentials (``MUFU.EX2``) of every ``selective_scan_bwd`` entry
+   function (each reverse walk exactly one a state a step of its unrolled
+   round, 16 x 4); build the first version of ``selective_scan_bwd``
+   (``dev/scan_bwd_first``) beside it, and read the resident blocks an SM
+   of the reverse walk (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``
+   behind ``resident_blocks``): at least ``BLOCKS_PER_SM`` (16 warps) in
+   both dtypes, or the run fails;
 3. the two network kernels (one thread-block cluster per engine call, the
    staged alloc/release slot writes folded in) at the main path's shapes —
    16,384 slots, depth 3, the 555 links of the 500-site grid, 679 and
@@ -146,8 +153,10 @@ Phases, each raising on failure (the script then exits non-zero):
    (float32) or ``TOL`` (bf16) of its largest entry, two calls bit-equal;
    device and wrapper times of the forward with and without states and of
    the backward, the plain backward's, beside the bound (bytes: x, dt, dy
-   read and dx, ddt written). (b) falcon-mamba-7b at full width and depth
-   ``MAMBA_TRAIN_LAYERS`` of 64, batch 4 x 1,024, the same run as 12 (b):
+   read and dx, ddt written); the backward and its first version timed in
+   turns (first, current, current, first) on the same inputs. (b)
+   falcon-mamba-7b at full width and depth ``MAMBA_TRAIN_LAYERS`` of 64,
+   batch 4 x 1,024, the same run as 12 (b):
    first step against ``backend="plain"`` within ``TRAIN_TOL``, 8 steps
    with a falling loss, ``selective_scan`` twice and
    ``selective_scan_bwd`` once a layer a step and nothing else, one step
@@ -285,6 +294,14 @@ TRAIN_TOL = 5e-2
 #: trains at (64 layers need 112.1 GB of training state; 8 need 17.7 GB)
 SCAN_BWD_DTYPES = ("float32", "bfloat16")
 MAMBA_TRAIN_LAYERS = 8
+#: The first version of ``selective_scan_bwd`` (one 256-thread block an SM,
+#: two exponentials a state a step): its source and the header it was
+#: written against, built beside the current one and timed in turns with
+#: it in phase 13 (a)
+SCAN_BWD_FIRST = os.path.join(ROOT, "dev", "scan_bwd_first")
+#: exponentials in the SASS of each reverse walk: one a state (4 a thread)
+#: a step of its unrolled 16-step round
+SCAN_BWD_EX2 = 16 * 4
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
 FP64_FLOPS = 34e12            # H100 SXM float64, outside the tensor cores
 BF16_FLOPS = 989e12           # H100 SXM bf16, dense tensor cores
@@ -1939,7 +1956,66 @@ def scan_bwd_work(Bz: int, S: int, Di: int, N: int,
     return bytes_, 18 * Bz * S * Di * N, Bz * S * Di * N
 
 
-def phase_train_mamba_kernels(dev) -> dict:
+def start_first_scan_bwd() -> tuple:
+    """Start ``nvcc`` on the first version of ``selective_scan_bwd``
+    (``SCAN_BWD_FIRST``, the current one's flags) into
+    ``build/kernels/scan_bwd_first``; returns the process and the
+    library's path."""
+    from repro_torch.kernels import _cuda
+
+    out = _cuda.BUILD_DIR / "scan_bwd_first"
+    out.mkdir(parents=True, exist_ok=True)
+    lib = out / "libselective_scan_bwd.so"
+    cmd = [_cuda._nvcc(), *_cuda.nvcc_flags("selective_scan_bwd"), "-I",
+           SCAN_BWD_FIRST, "-o", str(lib),
+           os.path.join(SCAN_BWD_FIRST, "selective_scan_bwd.cu")]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True), lib
+
+
+def load_first_scan_bwd(started: tuple) -> tuple:
+    """Wait for :func:`start_first_scan_bwd`'s build; returns its C entry
+    point (the current one's signature), its library and the build log.
+    Raises if it failed."""
+    import ctypes
+
+    from repro_torch.kernels import _cuda
+
+    proc, lib = started
+    log, _ = proc.communicate()
+    if proc.returncode:
+        raise RuntimeError(f"the first selective_scan_bwd failed to build\n"
+                           f"{log}")
+    symbol, argtypes = _cuda._SIGNATURES["selective_scan_bwd"]
+    fn = getattr(ctypes.CDLL(str(lib)), symbol)
+    fn.argtypes, fn.restype = argtypes, ctypes.c_int
+    return fn, lib, log
+
+
+def phase_scan_bwd_occupancy(dev) -> dict:
+    """Phase 2: the reverse walk's resident blocks an SM, in both dtypes,
+    for the N = 16 vector build (the training shape's) and the masked one;
+    raises below ``BLOCKS_PER_SM``."""
+    import torch
+
+    from repro_torch.kernels.selective_scan_bwd.kernel import (
+        BLOCKS_PER_SM, THREADS, resident_blocks)
+
+    out = {}
+    for dtype in SCAN_BWD_DTYPES:
+        for full in (True, False):
+            n = resident_blocks(getattr(torch, dtype), full, dev)
+            key = f"{dtype} {'N=16' if full else 'masked'}"
+            out[key] = n
+            print(f"[build] selective_scan_bwd {key}: {n} resident blocks "
+                  f"an SM ({n * THREADS // 32} warps)")
+    if min(out.values()) < BLOCKS_PER_SM:
+        raise AssertionError(f"selective_scan_bwd: fewer than "
+                             f"{BLOCKS_PER_SM} resident blocks an SM: {out}")
+    return out
+
+
+def phase_train_mamba_kernels(dev, first=None) -> dict:
     """Phase 13 (a): the scan's backward at falcon-mamba-7b's shape in
     float32 and bf16 (``SCAN_BWD_DTYPES``), from a seed with a nonzero h0
     and dh_last: the forward with round states bit-equal in y and h_last
@@ -1947,10 +2023,14 @@ def phase_train_mamba_kernels(dev) -> dict:
     the card on the same inputs within ``10 x TOL`` (float32) or ``TOL``
     (bf16) of the output's largest entry; two calls bit-equal; device and
     wrapper times of the forward with and without states and of the
-    backward, the plain backward's device time and the bound."""
+    backward, the plain backward's device time and the bound. With
+    ``first`` (the first version's C entry point), the backward and the
+    first version in turns on the same inputs: first, current, current,
+    first."""
     import numpy as np
     import torch
 
+    from repro_torch.kernels import _cuda
     from repro_torch.kernels.selective_scan import (round_states,
                                                     selective_scan_kernel)
     from repro_torch.kernels.selective_scan_bwd import (
@@ -2005,6 +2085,16 @@ def phase_train_mamba_kernels(dev) -> dict:
         plain = lambda: selective_scan_bwd_ref(  # noqa: E731
             *args, states, dy, dh_last)
         split, _ = device_split(kern)
+        turns = []
+        if first is not None:
+            current = _cuda.entry_point("selective_scan_bwd")
+            try:
+                for label in ("first", "current", "current", "first"):
+                    _cuda._loaded["selective_scan_bwd"] = (
+                        first if label == "first" else current)
+                    turns.append((label, device_ms(kern, calls=10)))
+            finally:
+                _cuda._loaded["selective_scan_bwd"] = current
         r = dict(shape=f"selective_scan_bwd {dtype} Bz={Bz} S={S} Di={Di} "
                        f"N={N}",
                  max_abs_err=max(errors.values()), errors=errors, tol=tol,
@@ -2023,6 +2113,8 @@ def phase_train_mamba_kernels(dev) -> dict:
                  split_us={k.replace("(anonymous namespace)::", "")
                            .split("(")[0].split("<")[0]: (us / n, n)
                            for k, (us, n) in split.items()},
+                 turns_ms=turns,
+                 first_ms=[ms for label, ms in turns if label == "first"],
                  library_ms=None, bytes=bytes_, flops=flops, exps=exps,
                  bound_ms=bound_ms, bound_by=term)
         print(f"[train-mamba-kernels] {r['shape']}: errors relative to each "
@@ -2037,7 +2129,8 @@ def phase_train_mamba_kernels(dev) -> dict:
               f"bytes={bytes_} flops={flops} exps={exps} "
               f"bound={1e3 * bound_ms!r}us ({term}); by kernel (profiler: "
               f"us a launch, launches recorded of 20 calls): "
-              f"{r['split_us']}")
+              f"{r['split_us']}; in turns with the first version (us): "
+              f"{[(k, 1e3 * v) for k, v in turns]}")
         out.append(r)
         del args, x, dts, B_, C_, A, D, h0, dy, dh_last, states
         torch.cuda.empty_cache()
@@ -2319,9 +2412,10 @@ def demangle(symbol: str) -> str:
     return name.replace("(anonymous namespace)::", "").split("(")[0]
 
 
-def sass_counts(lib_name: str, pattern: str) -> dict:
+def sass_counts(lib_name, pattern: str) -> dict:
     """Instructions matching ``pattern`` per entry function of one
-    library, read from ``cuobjdump -sass``."""
+    library (a kernel's name, or a library's path), read from
+    ``cuobjdump -sass``."""
     import re
     import shutil
 
@@ -2329,7 +2423,8 @@ def sass_counts(lib_name: str, pattern: str) -> dict:
 
     tool = shutil.which("cuobjdump") or os.path.join(
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
-    lib = _cuda._library_path(lib_name)
+    lib = (_cuda._library_path(lib_name) if lib_name in _cuda.KERNELS
+           else lib_name)
     sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
                           text=True, check=True).stdout
     counts, fn = {}, None
@@ -2343,8 +2438,8 @@ def sass_counts(lib_name: str, pattern: str) -> dict:
     return counts
 
 
-def phase_sass() -> dict:
-    """Read the SASS of two kinds of kernel. The tensor-core instructions
+def phase_sass(first_scan_bwd=None) -> dict:
+    """Read the SASS of three kinds of kernel. The tensor-core instructions
     of each ``flash_attention`` entry function (``HMMA``, ``HGMMA``):
     raises unless each tensor-core prefill kernel has some; the other
     routes run on the CUDA cores. The warpgroup products (``HGMMA``) of
@@ -2352,7 +2447,11 @@ def phase_sass() -> dict:
     and the dQ kernel of every head dim have some. The non-coherent
     read-only loads (``LDG...CONSTANT``) narrower than 64 bits in the
     network cluster kernels: raises on any, since their int32 reads (path
-    rows, index lists) may see rows the same launch wrote."""
+    rows, index lists) may see rows the same launch wrote. The
+    exponentials (``MUFU.EX2``) of each ``selective_scan_bwd`` entry
+    function: raises unless each reverse walk has ``SCAN_BWD_EX2``, one a
+    state a step of its unrolled round (the library ``first_scan_bwd``,
+    the first version, is counted beside it)."""
     from repro_torch.kernels.flash_attention.kernel import HEAD_DIMS
 
     counts = sass_counts("flash_attention", r"\bH(G)?MMA\b")
@@ -2382,7 +2481,23 @@ def phase_sass() -> dict:
     if any(narrow_nc.values()):
         raise AssertionError(f"network kernels with narrow non-coherent "
                              f"loads: {narrow_nc}")
-    return {"tensor_core_instructions": counts,
+    ex2 = {}
+    for label, lib in (("current", "selective_scan_bwd"),
+                       ("first", first_scan_bwd)):
+        if lib is None:
+            continue
+        ex2[label] = sass_counts(lib, r"\bMUFU\.EX2\b")
+        for fn, n in sorted(ex2[label].items()):
+            print(f"[sass] selective_scan_bwd ({label}): {fn}: {n} "
+                  f"MUFU.EX2 instructions")
+    walks = {fn: n for fn, n in ex2["current"].items()
+             if "scan_bwd_kernel" in fn}
+    if len(walks) != 4 or set(walks.values()) != {SCAN_BWD_EX2}:
+        raise AssertionError(f"selective_scan_bwd walks without one "
+                             f"exponential a state a step "
+                             f"({SCAN_BWD_EX2}): {walks}")
+    return {"scan_bwd_ex2": ex2,
+            "tensor_core_instructions": counts,
             "bwd_tensor_core_instructions": bwd,
             "narrow_noncoherent_loads": narrow_nc}
 
@@ -2403,8 +2518,12 @@ def main() -> int:
     print(f"[card] torch.cuda.get_device_name: {torch.cuda.get_device_name(0)}"
           f" torch {torch.__version__} cuda {torch.version.cuda}")
 
+    first_build = start_first_scan_bwd()
     build_s = _cuda.build()
     print(f"[build] {', '.join(_cuda.KERNELS)} built in {build_s:.2f}s")
+    first_scan_bwd, first_lib, first_log = load_first_scan_bwd(first_build)
+    for fn, report in ptxas_report(first_log):
+        print(f"[build] selective_scan_bwd (first version): {fn}: {report}")
     ptxas = {name: ptxas_report(log) for name, log in _cuda.BUILD_LOGS.items()}
     for name, reports in ptxas.items():
         for fn, report in reports:
@@ -2417,7 +2536,8 @@ def main() -> int:
     if spills:
         raise AssertionError(f"backward entry functions that spill: "
                              f"{spills}")
-    sass = phase_sass()
+    sass = phase_sass(first_lib)
+    occupancy = phase_scan_bwd_occupancy(dev)
 
     kernels = phase_kernels(dev)
     dense = phase_dense_kernels(dev)
@@ -2434,7 +2554,7 @@ def main() -> int:
     train = phase_train(dev)
     supervised = phase_supervisor(dev)
     t13 = time.perf_counter()
-    mamba_kernels = phase_train_mamba_kernels(dev)
+    mamba_kernels = phase_train_mamba_kernels(dev, first_scan_bwd)
     mamba_train = phase_train_mamba(dev)
     print(f"[train-mamba] phase 13 wall_s={time.perf_counter() - t13!r}")
     launches = {"net_rerate": golden["net_rerate"],
@@ -2608,13 +2728,17 @@ def main() -> int:
         "plain_wrapper_ms": row["plain_wrapper_ms"], "shape": row["shape"],
         "errors": row["errors"], "tol": row["tol"],
         "split_us": row["split_us"],
+        "first_version_ms": row["first_ms"], "turns_ms": row["turns_ms"],
+        "resident_blocks": occupancy,
+        "mufu_ex2": sass["scan_bwd_ex2"],
         "forward_ms": {"without_states": row["fwd_ms"],
                        "with_states": row["fwd_states_ms"],
                        "with_states_wrapper": row["fwd_states_wrapper_ms"]},
         "other_shapes": [{k: r[k] for k in
                           ("shape", "max_abs_err", "errors", "ms", "fwd_ms",
                            "fwd_states_ms", "plain_ms", "wrapper_ms",
-                           "split_us", "bound_ms", "bound_by")}
+                           "split_us", "first_ms", "turns_ms", "bound_ms",
+                           "bound_by")}
                          for r in rows[1:]],
         "training": {k: v for k, v in mamba_train.items() if k != "launches"},
         "ptxas": dict(ptxas.get("selective_scan_bwd", [])),

@@ -163,6 +163,17 @@ def entry_point(name: str) -> ctypes._CFuncPtr:
     return _loaded[name]
 
 
+def symbol(name: str, sym: str, argtypes) -> ctypes._CFuncPtr:
+    """Another C function ``sym`` of kernel ``name``'s library (a query
+    beside its entry point), building the library first if needed; it
+    returns an int."""
+    entry_point(name)
+    fn = getattr(ctypes.CDLL(str(_library_path(name))), sym)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return fn
+
+
 def check(name: str, err: int) -> None:
     """Raise if a launch reported a CUDA error; else count the launch."""
     if err != 0:

@@ -5,6 +5,8 @@ dD, then their sums in a fixed order."""
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from .. import _cuda
@@ -12,6 +14,29 @@ from ..selective_scan.kernel import MAX_STATE, ROUND
 
 #: channels a block of the reverse walk serves
 CHANNELS = 64
+#: threads a block of the reverse walk
+THREADS = 256
+#: blocks of the reverse walk an SM is built to hold (``kBlocksPerSm``)
+BLOCKS_PER_SM = 2
+
+
+def resident_blocks(dtype: torch.dtype, full: bool,
+                    dev: torch.device) -> int:
+    """Reverse-walk blocks an SM of CUDA device ``dev`` holds at once, by
+    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` with the kernel's
+    registers and dynamic shared memory: bf16 or float32 streams, the
+    N = 16 vector build (``full``) or the masked one."""
+    if dev.type != "cuda":
+        raise ValueError(f"resident_blocks: needs a CUDA device, got {dev}")
+    fn = _cuda.symbol("selective_scan_bwd", "selective_scan_bwd_occupancy",
+                      [ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                       ctypes.POINTER(ctypes.c_int)])
+    blocks = ctypes.c_int(0)
+    err = fn(int(dtype == torch.bfloat16), int(full), dev.index or 0,
+             ctypes.byref(blocks))
+    if err:
+        raise RuntimeError(f"selective_scan_bwd_occupancy: CUDA error {err}")
+    return blocks.value
 
 
 def selective_scan_bwd_kernel(x: torch.Tensor, dt: torch.Tensor,

@@ -43,8 +43,12 @@ from repro_torch.kernels.selective_scan import (round_states,
                                                 selective_scan_kernel,
                                                 selective_scan_ref,
                                                 selective_scan_train)
+from repro_torch.kernels.selective_scan.kernel import MAX_STATE, ROUND
 from repro_torch.kernels.selective_scan_bwd import (selective_scan_bwd_kernel,
                                                     selective_scan_bwd_ref)
+from repro_torch.kernels.selective_scan_bwd.kernel import (BLOCKS_PER_SM,
+                                                           CHANNELS, THREADS,
+                                                           resident_blocks)
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 GRID_IDS = "B,H,KV,Sq,Skv,hd,causal,window,softcap"
@@ -121,10 +125,15 @@ SCAN = [(2, 64, 32, 8), (1, 128, 64, 16), (2, 96, 48, 4), (1, 256, 128, 16),
 
 #: the scan backward: falcon-mamba-7b's training shape, one round, S not a
 #: multiple of the 16-step round, S = 1, Di not a multiple of the
-#: 64-channel block, N below 16 (the masked states)
+#: 64-channel block, N below 16 (the masked states); then the edges of the
+#: walk's two 8-step halves of a round: S a multiple of 8 but not of 16,
+#: S of one half, just past one half, shorter than one half, with N 16, 5
+#: and 1 and ragged channel blocks
 SCAN_BWD = [(4, 1024, 8192, 16), (1, 16, 64, 16), (2, 17, 64, 16),
             (1, 33, 128, 5), (2, 1, 100, 16), (3, 70, 200, 8),
-            (1, 19, 37, 7), (2, 40, 96, 1), (2, 100, 130, 16)]
+            (1, 19, 37, 7), (2, 40, 96, 1), (2, 100, 130, 16),
+            (2, 24, 100, 16), (1, 8, 64, 5), (2, 9, 130, 1),
+            (3, 5, 37, 16), (1, 56, 72, 5)]
 #: the scan backward's tolerance, relative to each output's largest entry
 BWD_TOL = {"float32": 10 * TOL["float32"], "bfloat16": TOL["bfloat16"]}
 
@@ -634,6 +643,42 @@ def test_scan_bwd_kernel_checks():
     assert _cuda.LAUNCHES == before
 
 
+def _constants(path):
+    """``constexpr int name = value;`` of a C source, as a dict."""
+    import re
+    text = (_cuda.CSRC / path).read_text()
+    return {m.group(1): m.group(2) for m in re.finditer(
+        r"constexpr int (k\w+) = ([^;]+);", text)}
+
+
+def test_scan_bwd_constants_match_source():
+    """The wrapper's constants are the C source's: the 16-step round the
+    forward saves states at, the 64-channel block of 256 threads, the
+    widest state, two resident blocks an SM; and two blocks' dynamic
+    shared memory (two stages of a round's rows, the round's a(t) as a
+    float4 a thread a step, the warps' dB | dC sums) fit an SM's 228 KB
+    beside 1 KB each the runtime keeps."""
+    head = _constants("selective_scan.cuh")
+    bwd = _constants("selective_scan_bwd.cu")
+    assert int(head["kSteps"]) == ROUND
+    assert int(head["kCh"]) == CHANNELS
+    assert head["kThreads"] == "kCh * kLanes"
+    assert CHANNELS * int(head["kLanes"]) == THREADS
+    assert int(head["kLanes"]) * int(head["kPer"]) == MAX_STATE
+    assert bwd["kHalf"] == "kSteps / 2"
+    assert int(bwd["kBlocksPerSm"]) == BLOCKS_PER_SM
+    text = (_cuda.CSRC / "selective_scan_bwd.cu").read_text()
+    assert "__launch_bounds__(kThreads, kBlocksPerSm)" in text
+    assert text.count("ex2_ftz(") == 2        # the definition and one call
+    assert "exp2f(" not in text and "__expf(" not in text
+    for size in (4, 2):                       # float32, bf16 streams
+        stage = size * (3 * ROUND * CHANNELS + 2 * ROUND * MAX_STATE)
+        smem = (2 * stage + 16 * ROUND * THREADS
+                + 4 * ROUND * (THREADS // 32) * 2 * MAX_STATE)
+        assert smem <= 232_448                # a block's most
+        assert BLOCKS_PER_SM * (smem + 1024) <= 233_472
+
+
 def test_scan_train_routes():
     """SelectiveScanFn on CPU tensors: the plain forward and backward
     (its gradients are the plain backward's on the saved states);
@@ -695,6 +740,16 @@ def test_cuda_scan_bwd_matches_plain(Bz, S, Di, N, dtype, with_dh_last):
     want = selective_scan_bwd_ref(*args, states, dy, dh_last)
     for g, w in zip(got, want):
         _close_to_largest(g, w, BWD_TOL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("full", [True, False], ids=["n16", "masked"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_scan_bwd_occupancy(dtype, full):
+    """The reverse walk holds its design's blocks an SM (16 warps) with
+    its registers and dynamic shared memory."""
+    dev = _card()
+    assert resident_blocks(getattr(torch, dtype), full, dev) >= BLOCKS_PER_SM
 
 
 @pytest.mark.gpu
