@@ -70,7 +70,10 @@ Phases, each raising on failure (the script then exits non-zero):
    ``flash_attention`` for the gemma3-1b prefill (B 4, H 4, KV 1, S 1,024,
    hd 256; global, local, float32 and softcap forms) and decode (one query
    against the 1,040-slot cache; global and local in bf16, global in
-   float32), ``selective_scan`` for the falcon-mamba-7b
+   float32), and at the MoE configs' layers (``MOE_ATTN_CASES``):
+   granite-moe-1b-a400m's prefill and split decode (H 16, KV 8, hd 64) in
+   bf16 and float32, arctic-480b's prefill (H 56, KV 8, hd 128) in bf16
+   and float32; ``selective_scan`` for the falcon-mamba-7b
    prefill (Bz 4, S 1,024, Di 8,192, N 16) and decode (S 1 from a state;
    timed cold, cycling over ``MAMBA_LAYERS`` states, warm beside it),
    each against its plain version within ``TOL`` (ten times for the scan),
@@ -81,7 +84,9 @@ Phases, each raising on failure (the script then exits non-zero):
    (``plan_launch``: bf16 prefill on the tensor cores, float32 prefill on
    the CUDA cores, decode as splits of the key range and a merge);
 9. serving (``SERVE``): ``repro_torch.launch.serve`` at full width for
-   gemma3-1b and falcon-mamba-7b — seeded weights, the two-pod router, 4
+   gemma3-1b, falcon-mamba-7b and granite-moe-1b-a400m (phase 14 (b); its
+   routes that differ between the bf16 kernel and plain runs counted by
+   ``route_flips``) — seeded weights, the two-pod router, 4
    requests of 1,024-token prompts, 16 new tokens — on the kernels, then the
    same model and inputs on the plain route (``backend="plain"``) on the
    card, then both routes again with the weights in float32. Each kernel
@@ -89,7 +94,10 @@ Phases, each raising on failure (the script then exits non-zero):
    kernel run, the plain route never. The float32 prefill logits must agree
    within ``SERVE_TOL_F32``; the bf16 ones within twice the bf16 noise (how
    far the plain route's bf16 logits lie from its float32 ones); the greedy
-   tokens by ``greedy_agreement``'s margin rule at each tolerance;
+   tokens by ``greedy_agreement``'s margin rule at each tolerance. Each
+   model is warmed up at the served shape on both routes before the timed
+   runs; a MoE model's bf16 prefill and one decode step are then profiled
+   by family (``serve_split``);
 10. telemetry, audit and sanitizer on the card (``phase_telemetry``):
    ``grid_500_saturated`` (2,000 jobs) under ``obs="trace"`` on the card
    and the CPU — its metrics equal to phase 5's card run, the four phase
@@ -160,7 +168,32 @@ Phases, each raising on failure (the script then exits non-zero):
    first step against ``backend="plain"`` within ``TRAIN_TOL``, 8 steps
    with a falling loss, ``selective_scan`` twice and
    ``selective_scan_bwd`` once a layer a step and nothing else, one step
-   profiled by family.
+   profiled by family;
+14. the MoE feed-forward and the float32 backward: (a)
+   ``flash_attention_bwd`` at granite-moe-1b-a400m's attention layer (B 4,
+   H 16, KV 8, S 1,024, hd 64; ``MOE_BWD_CASES``) as 12 (a), in bf16 and
+   on the float32 route (CUDA cores), and the float32 route at gemma3-1b's
+   global layer: a float32 case against the plain backward on the same
+   inputs within ``TOL["float32"]``, two calls bit-equal, timed as 12 (a)
+   beside its bound by float32 operations and
+   ``scaled_dot_product_attention``'s float32 forward + backward; (b) is
+   phase 9's granite-moe-1b-a400m run; (c) granite-moe-1b-a400m trained at
+   full width and depth as 12 (b), its first step's ``moe_aux`` held with
+   the loss; the routes of both bf16 first steps are recorded, and in a
+   layer whose routes differ the feed-forward's leaves (router, experts)
+   and the norm before it are held within ``TRAIN_TOL`` or twice the plain
+   bf16 route's own distance from float32, whichever is larger (a flipped
+   token's gradient moves them as far as bf16 itself does), every other
+   leaf within ``TRAIN_TOL``; the first step also in float32 (the float32
+   backward), every leaf within ``TRAIN_TOL``; the profiled step's
+   ``moe`` family is the device time inside the feed-forward's profiler
+   range (``MOE_SCOPE``, forward, recompute and backward) that no other
+   family takes; (d) arctic-480b at full width and depth
+   ``ARCTIC_LAYERS``: one prefill of 4 x 1,024 tokens on the kernels and on
+   the plain route in bf16, then with the weights in float32; the float32
+   logits within ``SERVE_TOL_F32``, the bf16 ones within twice the plain
+   bf16 route's distance from float32 (relative L2), peak memory and the
+   routes that differ.
 
 The launch counts of each path are reset just before it runs and read just
 after. The second-to-last line is the kernel summary as JSON; the last line
@@ -170,6 +203,7 @@ of the repository beside it, the script exits non-zero and prints neither.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -269,7 +303,8 @@ L2_BYTES = 50 * 2 ** 20       # H100 SXM
 TOL = {"bfloat16": 2e-2, "float32": 2e-5}   # tests/test_kernels.py
 #: Serving runs (phase 9): arch, its kernel, requests, prompt, new tokens.
 SERVE = (("gemma3-1b", "flash_attention"), ("falcon-mamba-7b",
-                                            "selective_scan"))
+                                            "selective_scan"),
+         ("granite-moe-1b-a400m", "flash_attention"))
 SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW = 4, 1024, 16
 #: kernel route against plain route with float32 weights, at full depth
 #: (the bf16 runs are held to twice the bf16 noise measured in the run)
@@ -277,9 +312,9 @@ SERVE_TOL_F32 = 1e-3
 #: Phase 12 (a): the backward's shapes: name, B, H, KV, S, hd, window,
 #: softcap (gemma3-1b's global and local layers, gemma2-27b's heads)
 BWD_CASES = (
-    ("gemma3-1b global", 4, 4, 1, 1024, 256, None, None),
-    ("gemma3-1b local", 4, 4, 1, 1024, 256, 512, None),
-    ("gemma2-27b softcap", 4, 32, 16, 512, 128, None, 50.0),
+    ("gemma3-1b global", "bfloat16", 4, 4, 1, 1024, 256, None, None),
+    ("gemma3-1b local", "bfloat16", 4, 4, 1, 1024, 256, 512, None),
+    ("gemma2-27b softcap", "bfloat16", 4, 32, 16, 512, 128, None, 50.0),
 )
 #: Phase 12 (b): batch, sequence and steps of the full-width training run;
 #: the relative tolerance of the kernel route's first-step loss and of
@@ -289,6 +324,35 @@ BWD_CASES = (
 #: float32 is printed beside)
 TRAIN_B, TRAIN_S, TRAIN_STEPS = 4, 1024, 8
 TRAIN_TOL = 5e-2
+#: Phase 14 (a): the backward at granite-moe-1b-a400m's attention layer,
+#: in bf16 and on the float32 route, and the float32 route at gemma3-1b's
+#: global layer (as BWD_CASES)
+MOE_BWD_CASES = (
+    ("granite-moe-1b-a400m", "bfloat16", 4, 16, 8, 1024, 64, None, None),
+    ("granite-moe-1b-a400m", "float32", 4, 16, 8, 1024, 64, None, None),
+    ("gemma3-1b global", "float32", 4, 4, 1, 1024, 256, None, None),
+)
+#: The MoE configs' attention layers as their serving paths call the
+#: forward (phases 9 and 14 (d)): name, dtype, B, H, KV, hd, Sq, q_offset,
+#: kv_len (causal, no window, no softcap; decode reads a 1,040-slot cache)
+MOE_ATTN_CASES = (
+    ("granite-moe-1b-a400m prefill bf16", "bfloat16", 4, 16, 8, 64, 1024, 0,
+     None),
+    ("granite-moe-1b-a400m decode bf16", "bfloat16", 4, 16, 8, 64, 1, 1039,
+     1040),
+    ("granite-moe-1b-a400m prefill f32", "float32", 4, 16, 8, 64, 1024, 0,
+     None),
+    ("granite-moe-1b-a400m decode f32", "float32", 4, 16, 8, 64, 1, 1039,
+     1040),
+    ("arctic-480b prefill bf16", "bfloat16", 4, 56, 8, 128, 1024, 0, None),
+    ("arctic-480b prefill f32", "float32", 4, 56, 8, 128, 1024, 0, None),
+)
+#: Phase 14 (d): arctic-480b's depth (one layer's 128 experts are 26.8 GB
+#: in bf16; the whole model is ~954 GB); its bf16 prefill logits are held
+#: as phase 9 holds bf16 logits, to twice the plain bf16 route's own
+#: distance from float32, measured in the run, and its float32 logits to
+#: SERVE_TOL_F32
+ARCTIC_LAYERS = 1
 #: Phase 13: the scan backward's dtypes at falcon-mamba-7b's shape
 #: (MAMBA_BZ x TRAIN_S, MAMBA_DI, MAMBA_N), and the depth falcon-mamba-7b
 #: trains at (64 layers need 112.1 GB of training state; 8 need 17.7 GB)
@@ -1440,23 +1504,27 @@ def scan_work(Bz: int, S: int, Di: int, N: int) -> tuple[int, int, int]:
 
 
 def _model_record(name, kern, plain, library, err, tol, bytes_, flops,
-                  peak, plain_calls, exps: float = 0, ms=None) -> dict:
+                  peak, plain_calls, exps: float = 0, ms=None,
+                  reps: dict | None = None) -> dict:
     """Times of one kernel case beside its bound; prints one line. ``ms``,
     when given, is the kernel's device time as its path sees it (the
     scan's cold decode); the time of ``kern`` replayed on the same inputs
-    is then ``warm_ms``."""
+    is then ``warm_ms``. ``reps`` (rounds, calls) replaces the default
+    timing counts for the kernel and the library."""
+    reps = reps or {}
     bound_ms, term = roofline(bytes_, flops, peak, exps)
-    warm = device_ms(kern)
+    warm = device_ms(kern, **reps)
     r = dict(shape=name, max_abs_err=err, tol=tol,
              ms=warm if ms is None else ms, warm_ms=warm,
              plain_ms=device_ms(plain, rounds=3, calls=plain_calls),
-             wrapper_ms=wrapper_ms(kern),
+             wrapper_ms=wrapper_ms(kern, **reps),
              plain_wrapper_ms=wrapper_ms(plain, rounds=3, calls=plain_calls,
                                          warmup=1),
              # eager, CUDA events around back-to-back calls: cuDNN's
              # attention allocates inside the call, which graph capture
              # refuses
-             library_ms=None if library is None else wrapper_ms(library),
+             library_ms=None if library is None else wrapper_ms(library,
+                                                                **reps),
              bytes=bytes_, flops=flops, exps=exps, bound_ms=bound_ms,
              bound_by=term)
     lib = ("none" if library is None
@@ -1487,7 +1555,9 @@ def _close_or_raise(name: str, got, want, tol: float) -> float:
 
 def phase_model_kernels(dev) -> dict:
     """Parity and timing of flash_attention and selective_scan at the
-    serving path's shapes; returns per-kernel records (one per case)."""
+    serving path's shapes (gemma3-1b's ``ATTN_CASES``, then the MoE
+    configs' ``MOE_ATTN_CASES``); returns per-kernel records (one per
+    case)."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -1499,8 +1569,14 @@ def phase_model_kernels(dev) -> dict:
 
     out: dict = {}
     rng = np.random.default_rng(13)
-    B, H, KV, hd = GEMMA_B, GEMMA_H, GEMMA_KV, GEMMA_HD
-    for name, dtype, sq, window, cap, q_offset, kv_len in ATTN_CASES:
+    cases = ([(name, dtype, GEMMA_B, GEMMA_H, GEMMA_KV, GEMMA_HD, sq, window,
+               cap, q_offset, kv_len)
+              for name, dtype, sq, window, cap, q_offset, kv_len in ATTN_CASES]
+             + [(name, dtype, B, H, KV, hd, sq, None, None, q_offset, kv_len)
+                for name, dtype, B, H, KV, hd, sq, q_offset, kv_len
+                in MOE_ATTN_CASES])
+    for (name, dtype, B, H, KV, hd, sq, window, cap, q_offset,
+         kv_len) in cases:
         dt = getattr(torch, dtype)
         skv = CACHE_LEN if kv_len else sq
         # the model's layout: (B, S, heads, hd) storage seen as (B, heads,
@@ -1540,7 +1616,10 @@ def phase_model_kernels(dev) -> dict:
             lambda: flash_attention_kernel(q, k, v, **kw),
             lambda: flash_attention_ref(q, k, v, **kw), library, err,
             TOL[dtype], bytes_, flops,
-            BF16_FLOPS if dt == torch.bfloat16 else FP32_FLOPS, 10))
+            BF16_FLOPS if dt == torch.bfloat16 else FP32_FLOPS, 10,
+            # a float32 prefill (CUDA cores) takes up to milliseconds a call
+            reps=(dict(rounds=5, calls=10)
+                  if dt == torch.float32 and sq > 1 else None)))
     out.update(phase_scan(dev))
     return out
 
@@ -1618,9 +1697,11 @@ def _serve(arch, cfg, params, backend: str, label: str) -> dict:
 
 
 def phase_serve(dev) -> dict:
-    """Both models at full width through the router and the engine, on the
-    kernels and on the plain route, in bf16 as served and with the same
-    weights in float32; returns the bf16 kernel runs' records."""
+    """Each model of ``SERVE`` at full width through the router and the
+    engine, on the kernels and on the plain route, in bf16 as served and
+    with the same weights in float32; for a MoE model also the routes
+    that differ between the bf16 routes (:func:`route_flips`); returns
+    the bf16 kernel runs' records."""
     import torch
 
     from repro_torch.configs import get_config
@@ -1643,9 +1724,9 @@ def phase_serve(dev) -> dict:
         params = M.init_params(cfg, seed=0, device=dev)
         torch.cuda.synchronize(dev)
         init_s = time.perf_counter() - t0
-        for backend in ("auto", "plain"):          # warm-up, uncounted
-            serve(cfg, params, n_requests=1, prompt_len=8, new_tokens=1,
-                  backend=backend)
+        for backend in ("auto", "plain"):   # warm-up at the served shape
+            serve(cfg, params, n_requests=SERVE_REQUESTS,
+                  prompt_len=SERVE_PROMPT, new_tokens=2, backend=backend)
         _cuda.reset_launches()                     # the main path
         k = _serve(arch, cfg, params, "auto", "bf16 kernels")
         launches = dict(_cuda.LAUNCHES)
@@ -1690,6 +1771,22 @@ def phase_serve(dev) -> dict:
         held = greedy_agreement(k["tokens"], p["tokens"], p["logits"],
                                 atol=tol, rtol=0.0)
         equal = int((k["tokens"] == p["tokens"]).sum())
+        flips = split = None
+        if cfg.moe is not None:
+            # the routes of both bf16 runs, recorded in untimed repeats
+            routes = {}
+            for backend in ("auto", "plain"):
+                with watch_routes() as w:
+                    serve(cfg, params, n_requests=SERVE_REQUESTS,
+                          prompt_len=SERVE_PROMPT, new_tokens=SERVE_NEW,
+                          backend=backend)
+                routes[backend] = w.calls
+            flips = route_flips(routes["auto"], routes["plain"])
+            del routes
+            print(f"[serve] {arch} bf16 routes kernels vs plain (a route is "
+                  f"a (token, layer); decode after the first differing "
+                  f"token sees other inputs): {flips}")
+            split = serve_split(cfg, params, dev, k)
         print(f"[serve] {arch} params={cfg.param_count()} init_s={init_s!r} "
               f"f32 prefill logits max_abs_err={err32!r} (tol "
               f"{SERVE_TOL_F32}), tokens held={held32}; bf16 prefill logits "
@@ -1699,7 +1796,8 @@ def phase_serve(dev) -> dict:
               f"(= {cfg.n_layers} layers x {1 + SERVE_NEW} steps)")
         out[arch] = dict(kernel=kernel, launches=launches[kernel],
                          logit_err=err, logit_tol=tol, logit_err_f32=err32,
-                         held=held, held_f32=held32,
+                         held=held, held_f32=held32, route_flips=flips,
+                         profiled=split,
                          **{m: k[m] for m in ("prefill_ms",
                                               "decode_ms_per_token",
                                               "tokens_per_s", "peak_bytes")},
@@ -1711,12 +1809,54 @@ def phase_serve(dev) -> dict:
     return out
 
 
-def device_split(fn, calls: int = 20) -> tuple[dict, float]:
+def serve_split(cfg, params, dev, timed: dict, calls: int = 5) -> dict:
+    """A bf16 prefill of ``SERVE_REQUESTS`` x ``SERVE_PROMPT`` tokens and
+    one decode step after it on the kernels, each ``calls`` times under the
+    profiler: device busy ms a call by family (:func:`step_families`) and
+    its share of the unprofiled run's prefill ms and decode ms a token
+    (``timed``, from :func:`_serve`; the profiler slows the host)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import model as M
+
+    tokens = torch.tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab, (SERVE_REQUESTS, SERVE_PROMPT)), device=dev)
+    caches = M.init_caches(cfg, SERVE_REQUESTS, SERVE_PROMPT + SERVE_NEW,
+                           device=dev)
+    steps = {
+        "prefill": (lambda: M.prefill(cfg, params, tokens, caches=caches,
+                                      backend="auto"),
+                    timed["prefill_ms"]),
+        "decode": (lambda: M.decode_step(cfg, params, caches, tokens[:, -1:],
+                                         SERVE_PROMPT, backend="auto"),
+                   timed["decode_ms_per_token"])}
+    out = {}
+    for part, (fn, ms) in steps.items():
+        by_name, wall, scoped = device_split(fn, calls=calls, scope=MOE_SCOPE)
+        family_ms = {k: v / 1e3 / calls
+                     for k, v in step_families(by_name, scoped).items()}
+        busy = sum(family_ms.values())
+        out[part] = {"profiled_wall_ms": wall, "busy_ms": busy,
+                     "busy_share_of_timed": busy / ms,
+                     "family_ms": family_ms}
+        print(f"[serve] {cfg.name} bf16 kernels {part} profiled ({calls} "
+              f"calls): wall_ms={wall!r} device busy ms={busy!r}, "
+              f"{100 * busy / ms!r}% of the timed run's {ms!r} ms; by "
+              f"family (ms): {family_ms}")
+    del caches
+    return out
+
+
+def device_split(fn, calls: int = 20, scope: str | None = None
+                 ) -> tuple[dict, float, dict]:
     """``calls`` back-to-back ``fn()`` calls under ``torch.profiler``
     after a warm-up: each device operation's name with ``(total µs,
     launches)`` as the trace recorded them (it may drop some, so divide by
-    the launches it saw, not by ``calls``), and the wall ms per call (host
-    clock, ended by a sync)."""
+    the launches it saw, not by ``calls``), the wall ms per call (host
+    clock, ended by a sync), and, when ``scope`` names a
+    ``record_function`` range, the device µs by name of the operations
+    launched inside it (:func:`scoped_device_us`)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1730,17 +1870,68 @@ def device_split(fn, calls: int = 20) -> tuple[dict, float]:
             fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    events = prof.events()
+    # a record_function range (the model's moe_ffn and train_segment) is
+    # also a device row spanning the kernels inside it: not work of its own
+    ranges = {e.name for e in events if e.is_user_annotation}
     by_name: dict = {}
     for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA:
+        if e.device_type == DeviceType.CUDA and e.key not in ranges:
             us, n = by_name.get(e.key, (0.0, 0))
             by_name[e.key] = (us + e.self_device_time_total, n + e.count)
-    return by_name, 1e3 * wall / calls
+    scoped = {} if scope is None else scoped_device_us(events, scope)
+    return by_name, 1e3 * wall / calls, scoped
 
 
-#: device operations of a training step, by family (first match wins)
+def scoped_device_us(events, scope: str) -> dict:
+    """Device µs by name of the operations launched inside the
+    ``record_function`` range ``scope``: by an operator under it (the
+    forward, and its recompute under remat) or by the backward of such an
+    operator (the autograd node that carries its sequence number). Another
+    range met first on the way up (the model's ``train_segment``, around a
+    recompute that some backward node triggered) marks a forward operator
+    outside the scope."""
+    from torch.autograd import DeviceType
+
+    cpu = [e for e in events if e.device_type == DeviceType.CPU]
+
+    def under(e) -> bool:
+        while e is not None and e.name != scope:
+            e = e.cpu_parent
+        return e is not None
+
+    keys = {(e.thread, e.sequence_nr) for e in cpu
+            if e.sequence_nr >= 0 and under(e)}
+
+    def inside(e) -> bool:
+        while e is not None:
+            if e.name == scope:
+                return True
+            if e.is_user_annotation:
+                return False
+            if e.name.startswith("autograd::engine::evaluate_function"):
+                return (e.fwd_thread, e.sequence_nr) in keys
+            e = e.cpu_parent
+        return False
+
+    ranges = {e.name for e in cpu if e.is_user_annotation}
+    out: dict = {}
+    for e in cpu:
+        if e.kernels and inside(e):
+            for k in e.kernels:
+                if k.name not in ranges:
+                    out[k.name] = out.get(k.name, 0.0) + k.duration
+    return out
+
+
+#: device operations of a training step, by family (first match wins);
+#: the ``moe`` family is what no pattern takes inside the MoE
+#: feed-forward's profiler range (``MOE_SCOPE``): routing, dispatch,
+#: combine and the experts' activation, forward and backward
 STEP_FAMILIES = (
-    ("flash_attention_bwd", ("dkdv_kernel", "dq_kernel", "delta_kernel")),
+    ("flash_attention_bwd", ("dkdv_kernel", "dq_kernel", "delta_kernel",
+                             "dkdv_f32_kernel", "dq_f32_kernel",
+                             "delta_f32_kernel")),
     ("flash_attention", ("flash_kernel",)),
     ("selective_scan_bwd", ("scan_bwd_kernel", "scan_bwd_sum_kernel")),
     ("selective_scan", ("scan_kernel",)),
@@ -1748,17 +1939,25 @@ STEP_FAMILIES = (
               "cublas")),
     ("copy", ("Memcpy", "Memset")),
 )
+#: the ``record_function`` range of ``repro_torch.models.moe.moe_ffn``
+MOE_SCOPE = "moe_ffn"
 
 
-def step_families(by_name: dict) -> dict:
-    """Device µs by family (``STEP_FAMILIES``; the rest is elementwise,
-    reductions and indexing) of one profiled call."""
+def step_families(by_name: dict, scoped: dict) -> dict:
+    """Device µs by family (``STEP_FAMILIES``; ``moe``: the rest of
+    ``scoped``, the device µs inside ``MOE_SCOPE``; ``other``: elementwise,
+    reductions and indexing elsewhere) of one profiled call."""
     out = {name: 0.0 for name, _ in STEP_FAMILIES}
-    out["other"] = 0.0
+    out["moe"] = out["other"] = 0.0
     for key, (us, _) in by_name.items():
         fam = next((name for name, pats in STEP_FAMILIES
-                    if any(p in key for p in pats)), "other")
-        out[fam] += us
+                    if any(p in key for p in pats)), None)
+        if fam is None:
+            moe = min(us, scoped.get(key, 0.0))
+            out["moe"] += moe
+            out["other"] += us - moe
+        else:
+            out[fam] += us
     return out
 
 
@@ -1790,12 +1989,18 @@ def _rel_l2(a, b) -> float:
     return float((a - b).norm() / b.norm().clamp_min(1e-30))
 
 
-def phase_train_kernels(dev) -> dict:
-    """Phase 12 (a): the flash attention backward at the training path's
-    shapes (``BWD_CASES``) against the float32 plain backward, within
-    twice the plain bf16 route's own error against it; times of the
+def phase_train_kernels(dev, cases=BWD_CASES, phase: str = "12 (a)"
+                        ) -> dict:
+    """Phase 12 (a) (and 14 (a) at ``MOE_BWD_CASES``): the flash attention
+    backward at the training path's shapes (``cases``). A bf16 case is
+    held against the float32 plain backward within twice the plain bf16
+    route's own error against it, and against the plain version on the
+    same inputs within ``TOL["bfloat16"]``; a float32 case (the CUDA-core
+    route) against the plain version on the same inputs within
+    ``TOL["float32"]``; both bit-equal over two calls. Times of the
     forward with lse and of the backward beside the bound and
-    ``scaled_dot_product_attention``'s forward + backward."""
+    ``scaled_dot_product_attention``'s forward + backward, by the
+    profiler's kernel sum."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -1810,56 +2015,77 @@ def phase_train_kernels(dev) -> dict:
     torch.cuda.empty_cache()
     rng = np.random.default_rng(17)
     out = []
-    for name, B, H, KV, S, hd, window, cap in BWD_CASES:
+    for name, dtype, B, H, KV, S, hd, window, cap in cases:
+        dt = getattr(torch, dtype)
+        bf16 = dt == torch.bfloat16
         # the model's layout: (B, S, heads, hd) storage seen as (B, heads,
         # S, hd)
         t = lambda n: torch.tensor(  # noqa: E731
             rng.standard_normal((B, S, n, hd), np.float32),
-            device=dev).bfloat16().transpose(1, 2)
+            device=dev).to(dt).transpose(1, 2)
         q, k, v, do = t(H), t(KV), t(KV), t(H)
         kw = dict(causal=True, window=window, softcap=cap)
         f32 = [x.float() for x in (q, k, v, do)]
         o32, lse32 = flash_attention_lse_ref(*f32[:3], **kw)
         want = flash_attention_bwd_ref(*f32[:3], o32, lse32, f32[3], **kw)
         ob, lseb = flash_attention_lse_ref(q, k, v, **kw)
-        plain = flash_attention_bwd_ref(q, k, v, ob, lseb, do, **kw)
         ok_, lse_k = flash_attention_kernel(q, k, v, with_lse=True, **kw)
         got = flash_attention_bwd_kernel(q, k, v, ok_, lse_k, do, **kw)
         # no float atomics: a second call on the same inputs is bit-equal
         again = flash_attention_bwd_kernel(q, k, v, ok_, lse_k, do, **kw)
         if not all(torch.equal(a, b) for a, b in zip(got, again)):
-            raise AssertionError(f"flash_attention_bwd {name}: two calls on "
-                                 "the same inputs differ")
+            raise AssertionError(f"flash_attention_bwd {name} {dtype}: two "
+                                 "calls on the same inputs differ")
         del again
-        # the plain version on the very same inputs (it rounds P and dS to
-        # bf16 where the kernel does): within the bf16 tolerance
+        # the plain version on the very same inputs (in bf16 it rounds P
+        # and dS to bf16 where the kernel does)
         same = flash_attention_bwd_ref(q, k, v, ok_, lse_k, do, **kw)
-        same_err = max(_close_or_raise(f"flash_attention_bwd {name} {label}",
-                                       g, p_, TOL["bfloat16"])
-                       for label, g, p_ in zip(("dq", "dk", "dv"), got, same))
+        same_errs = {label: _close_or_raise(
+            f"flash_attention_bwd {name} {dtype} {label}", g, p_,
+            TOL[dtype]) for label, g, p_ in zip(("dq", "dk", "dv"), got,
+                                                 same)}
+        same_err = max(same_errs.values())
         del same
         torch.cuda.synchronize(dev)
         lse_err = float((lse_k - lse32).abs().max())
-        if not lse_err <= TOL["bfloat16"]:
+        if bf16 and not lse_err <= TOL["bfloat16"]:
             raise AssertionError(f"flash_attention lse {name}: {lse_err} > "
                                  f"{TOL['bfloat16']}")
-        errors, tols = {}, {}
-        for label, g, p, w in zip(("dq", "dk", "dv"), got, plain, want):
-            noise = float((p.float() - w).abs().max())
-            err = float((g.float() - w).abs().max())
-            errors[label], tols[label] = err, 2 * noise
-            if not err <= 2 * noise:
-                raise AssertionError(
-                    f"flash_attention_bwd {name} {label}: max abs err "
-                    f"{err} > 2 x the plain bf16 route's {noise}")
-        del f32, o32, want, plain, got
+        if not bf16:
+            _close_or_raise(f"flash_attention lse {name} {dtype}", lse_k,
+                            lse32, TOL[dtype])
+        if bf16:
+            plain = flash_attention_bwd_ref(q, k, v, ob, lseb, do, **kw)
+            errors, tols = {}, {}
+            for label, g, p, w in zip(("dq", "dk", "dv"), got, plain, want):
+                noise = float((p.float() - w).abs().max())
+                err = float((g.float() - w).abs().max())
+                errors[label], tols[label] = err, 2 * noise
+                if not err <= 2 * noise:
+                    raise AssertionError(
+                        f"flash_attention_bwd {name} {label}: max abs err "
+                        f"{err} > 2 x the plain bf16 route's {noise}")
+            del plain
+        else:
+            # float32: the plain version on the same inputs is the exact
+            # gradient to float32 rounding
+            errors = same_errs
+            tols = {label: TOL[dtype] for label in errors}
+        del f32, o32, want, got
         mask = attention_mask(S, S, causal=True, window=window, q_offset=0,
                               kv_len=None, device=dev)
         pairs = int(mask.sum())
         flops = 2.5 * 4 * B * H * pairs * hd
-        # q, o, do, dq and k, v, dk, dv in bf16 once each; lse in float32
-        bytes_ = 2 * 4 * (B * H * S * hd + B * KV * S * hd) + 4 * B * H * S
-        bound_ms, term = roofline(bytes_, flops, BF16_FLOPS)
+        # q, o, do, dq and k, v, dk, dv once each in their dtype; lse in
+        # float32; bf16 products on the tensor cores, float32 ones on the
+        # CUDA cores
+        bytes_ = (q.element_size() * 4 * (B * H * S * hd + B * KV * S * hd)
+                  + 4 * B * H * S)
+        bound_ms, term = roofline(bytes_, flops,
+                                  BF16_FLOPS if bf16 else FP32_FLOPS)
+        # the float32 route takes milliseconds a call: fewer timed calls
+        reps = dict(rounds=ROUNDS, calls=CALLS) if bf16 else dict(rounds=5,
+                                                                  calls=10)
         fwd = lambda: flash_attention_kernel(  # noqa: E731
             q, k, v, with_lse=True, **kw)
         kern = lambda: flash_attention_bwd_kernel(  # noqa: E731
@@ -1877,14 +2103,16 @@ def phase_train_kernels(dev) -> dict:
                 o = F.scaled_dot_product_attention(*leaves, enable_gqa=True,
                                                    **sdpa_kw)
                 torch.autograd.grad(o, leaves, doc)
-        split, _ = device_split(kern)
+        split = device_split(kern)[0]
         # forward + backward on both sides timed the same way: the device
         # operations of 20 calls under the profiler
         both = lambda: (fwd(), kern())  # noqa: E731
         fwd_bwd_ms = split_ms(device_split(both)[0], 20)
         lib_split = None if library is None else device_split(library)[0]
-        r = dict(shape=f"flash_attention_bwd {name} B={B} H={H} KV={KV} "
+        r = dict(shape=f"flash_attention_bwd {name}"
+                       f"{'' if bf16 else ' float32'} B={B} H={H} KV={KV} "
                        f"S={S} hd={hd} window={window} softcap={cap}",
+                 dtype=dtype,
                  # µs a launch of each of the three kernels, and the
                  # launches the trace recorded of the 20 calls
                  split_us={k.replace("(anonymous namespace)::", "")
@@ -1893,9 +2121,9 @@ def phase_train_kernels(dev) -> dict:
                  errors=errors, tolerances=tols,
                  max_abs_err=max(errors.values()), lse_err=lse_err,
                  same_inputs_err=same_err,
-                 lse_ms=device_ms(fwd), ms=device_ms(kern),
+                 lse_ms=device_ms(fwd), ms=device_ms(kern, **reps),
                  plain_ms=device_ms(plain_fn, rounds=3, calls=2),
-                 wrapper_ms=wrapper_ms(kern),
+                 wrapper_ms=wrapper_ms(kern, warmup=3, **reps),
                  plain_wrapper_ms=wrapper_ms(plain_fn, rounds=3, calls=2,
                                              warmup=1),
                  fwd_bwd_ms=fwd_bwd_ms,
@@ -1919,10 +2147,12 @@ def phase_train_kernels(dev) -> dict:
                     f"{r['library_backend']} backend; heaviest, us a call: "
                     f"{r['library_top']}), "
                     f"{1e3 * r['library_wrapper_ms']!r}us eager")
-        print(f"[train-kernels] {r['shape']}: errors vs float32 {errors} "
-              f"(tol 2 x plain bf16 route's: {tols}) lse_err={lse_err!r}; "
+        held = ("vs float32 (tol 2 x plain bf16 route's" if bf16 else
+                "vs the plain version on the same inputs (tol")
+        print(f"[train-kernels] {r['shape']}: errors {held}: {tols}) "
+              f"{errors} lse_err={lse_err!r}; "
               f"against the plain version on the same inputs: max abs err "
-              f"{same_err!r} (within atol = rtol = {TOL['bfloat16']}); "
+              f"{same_err!r} (within atol = rtol = {TOL[dtype]}); "
               f"two calls bit-equal; "
               f"device: forward+lse={1e3 * r['lse_ms']!r}us "
               f"backward={1e3 * r['ms']!r}us plain backward="
@@ -1936,7 +2166,7 @@ def phase_train_kernels(dev) -> dict:
         out.append(r)
         del q, k, v, do, ob, lseb, ok_, lse_k, mask
         torch.cuda.empty_cache()
-    print(f"[train-kernels] phase 12 (a) wall_s="
+    print(f"[train-kernels] phase {phase} wall_s="
           f"{time.perf_counter() - t_phase!r}")
     return {"flash_attention_bwd": out}
 
@@ -2084,7 +2314,7 @@ def phase_train_mamba_kernels(dev, first=None) -> dict:
             *args, states, dy, dh_last)
         plain = lambda: selective_scan_bwd_ref(  # noqa: E731
             *args, states, dy, dh_last)
-        split, _ = device_split(kern)
+        split = device_split(kern)[0]
         turns = []
         if first is not None:
             current = _cuda.entry_point("selective_scan_bwd")
@@ -2168,7 +2398,9 @@ def phase_train_mamba(dev) -> dict:
 
 def _train_run(dev, cfg, phase: str, kernels: tuple) -> dict:
     """A full-width training run: the first step on the kernels against
-    ``backend="plain"`` (and the plain route in float32), then
+    ``backend="plain"`` (and the plain route in float32; for a MoE config
+    also the kernels against the plain route in float32, since bf16
+    routing flips move some leaves as far as bf16 itself does), then
     ``TRAIN_STEPS`` steps on a repeated batch under the supervisor; the
     forward kernel of ``kernels`` must launch twice a layer a step, the
     backward once, nothing else. Returns step times, memory, the launches
@@ -2197,34 +2429,115 @@ def _train_run(dev, cfg, phase: str, kernels: tuple) -> dict:
     params = run.pop("params")
 
     # the first step's loss and gradients: kernels, plain, plain in float32
-    _cuda.reset_launches()
-    lk, _, gk = grad_fn(cfg, run["tcfg"], params, b, backend="auto")
-    hold_launches = dict(_cuda.LAUNCHES)
-    lp, _, gp = grad_fn(cfg, run["tcfg"], params, b, backend="plain")
+    # (each loss read as it comes); for a MoE config the routes of both
+    # bf16 runs are recorded
+    moe = cfg.moe is not None
+    routes = {}
+    with contextlib.ExitStack() as watching:
+        if moe:
+            routes["auto"] = watching.enter_context(watch_routes()).calls
+        _cuda.reset_launches()
+        lk, mk, gk = grad_fn(cfg, run["tcfg"], params, b, backend="auto")
+        lk = float(lk)
+        hold_launches = dict(_cuda.LAUNCHES)
+    with contextlib.ExitStack() as watching:
+        if moe:
+            routes["plain"] = watching.enter_context(watch_routes()).calls
+        lp, mp, gp = grad_fn(cfg, run["tcfg"], params, b, backend="plain")
+        lp = float(lp)
     if hold_launches[bwd_name] != cfg.n_layers or any(
             _cuda.LAUNCHES[n] != c for n, c in hold_launches.items()):
         raise AssertionError(f"first step launches {hold_launches}, plain "
                              f"route {_cuda.LAUNCHES}")
     p32 = tree_map(lambda t: t.float(), params)
-    l32, _, g32 = grad_fn(cfg, run["tcfg"], p32, b, backend="plain")
+    l32, m32, g32 = grad_fn(cfg, run["tcfg"], p32, b, backend="plain")
+    l32 = float(l32)
+    if moe:
+        # the first step also in float32, kernels against plain: the
+        # float32 backward runs and routes rarely flip
+        _cuda.reset_launches()
+        lk32, mk32, gk32 = grad_fn(cfg, run["tcfg"], p32, b, backend="auto")
+        lk32 = float(lk32)
+        if _cuda.LAUNCHES[bwd_name] != cfg.n_layers:
+            raise AssertionError(f"float32 first step launches "
+                                 f"{dict(_cuda.LAUNCHES)}")
     del p32
-    names = ["/".join(path) for path, _ in _leaf_paths(gp)]
+    paths = [path for path, _ in _leaf_paths(gp)]
+    names = ["/".join(path) for path in paths]
     err = [_rel_l2(a, c) for a, c in zip(tree_leaves(gk), tree_leaves(gp))]
     noise = [_rel_l2(a, c) for a, c in zip(tree_leaves(gp), tree_leaves(g32))]
-    loss_err = abs(float(lk) - float(lp)) / abs(float(lp))
-    worst = max(range(len(err)), key=err.__getitem__)
+    loss_err = abs(lk - lp) / abs(lp)
+    # a MoE config's load-balancing probe (group 0's first router)
+    aux_err = (abs(float(mk["moe_aux"]) - float(mp["moe_aux"]))
+               / abs(float(mp["moe_aux"])) if moe else None)
+    tols = [TRAIN_TOL] * len(err)
+    flipped: dict = {}
+    if moe:
+        # top-k routes flip between the bf16 routes and move the leaves
+        # the flipped tokens' gradients pass through as far as bf16
+        # rounding itself does: in a layer whose routes differ, its
+        # feed-forward's leaves (router, experts) and the norm before it
+        # (ln2) are held within TRAIN_TOL or twice the plain route's own
+        # bf16 distance from float32, whichever is larger (phase 9's rule
+        # for bf16 logits); every other leaf stays at TRAIN_TOL
+        by_ptr = flips_by_router(routes["auto"], routes["plain"])
+        blocks = {tuple(path[:-2]): by_ptr.get(leaf.data_ptr(), 0)
+                  for path, leaf in _leaf_paths(params)
+                  if path[-2:] == ("moe", "router")}
+        flipped = {"/".join(blk): n for blk, n in blocks.items() if n}
+        for i, path in enumerate(paths):
+            blk = next((blk for blk in blocks
+                        if path[:len(blk)] == blk), None)
+            if (blk is not None and blocks[blk]
+                    and path[len(blk)] in ("moe", "ln2")):
+                tols[i] = max(TRAIN_TOL, 2 * noise[i])
+        del routes
+    moved = [i for i, t in enumerate(tols) if t > TRAIN_TOL]
+    worst = max(range(len(err)), key=lambda i: err[i] / tols[i])
+    rest = [i for i, t in enumerate(tols) if t == TRAIN_TOL]
     print(f"[train] {cfg.name} full width, {cfg.n_layers} layers, params="
           f"{sum(t.numel() for t in tree_leaves(params))} init_s={init_s!r} "
-          f"first step: loss kernels={float(lk)!r} plain={float(lp)!r} "
-          f"plain f32={float(l32)!r} rel err={loss_err!r}; gradient leaves "
+          f"first step: loss kernels={lk!r} plain={lp!r} "
+          f"plain f32={l32!r} rel err={loss_err!r}; gradient leaves "
           f"{len(err)}: max rel L2 kernels vs plain={err[worst]!r} "
           f"({names[worst]}), median={statistics.median(err)!r}; plain bf16 "
           f"vs f32: max={max(noise)!r} median={statistics.median(noise)!r} "
-          f"(tol {TRAIN_TOL})")
-    if not (loss_err <= TRAIN_TOL and err[worst] <= TRAIN_TOL):
-        raise AssertionError(f"first step: loss rel err {loss_err}, leaf "
-                             f"{names[worst]} rel L2 {err[worst]} > "
-                             f"{TRAIN_TOL}")
+          f"(tol {TRAIN_TOL})"
+          + ("" if not moe else
+             f"; moe_aux kernels={float(mk['moe_aux'])!r} plain="
+             f"{float(mp['moe_aux'])!r} rel err={aux_err!r}; tokens whose "
+             f"routes differ between the bf16 routes, by layer: {flipped}; "
+             f"leaves at TRAIN_TOL: {len(rest)}, max rel L2 "
+             f"{max(err[i] for i in rest)!r}; leaves held to 2 x the plain "
+             f"bf16 route's distance from f32 (kernels vs plain, tol): "
+             f"{ {names[i]: (err[i], tols[i]) for i in moved} }"))
+    ok = (loss_err <= TRAIN_TOL and err[worst] <= tols[worst]
+          and (aux_err is None or aux_err <= TRAIN_TOL))
+    first32 = None
+    if moe:
+        err32 = [_rel_l2(a, c) for a, c in zip(tree_leaves(gk32),
+                                               tree_leaves(g32))]
+        loss_err32 = abs(lk32 - l32) / abs(l32)
+        aux_err32 = (abs(float(mk32["moe_aux"]) - float(m32["moe_aux"]))
+                     / abs(float(m32["moe_aux"])))
+        worst32 = max(range(len(err32)), key=err32.__getitem__)
+        first32 = {"loss_rel_err": loss_err32, "moe_aux_rel_err": aux_err32,
+                   "max_leaf_rel_l2": err32[worst32],
+                   "max_leaf": names[worst32],
+                   "median_leaf_rel_l2": statistics.median(err32)}
+        print(f"[train] {cfg.name} first step in float32: loss kernels="
+              f"{lk32!r} plain={l32!r} rel err="
+              f"{loss_err32!r}; moe_aux rel err={aux_err32!r}; gradient "
+              f"leaves: max rel L2 kernels vs plain={err32[worst32]!r} "
+              f"({names[worst32]}), median={statistics.median(err32)!r} "
+              f"(tol {TRAIN_TOL})")
+        ok = ok and max(loss_err32, aux_err32, err32[worst32]) <= TRAIN_TOL
+        del gk32
+    if not ok:
+        raise AssertionError(f"first step: loss rel err {loss_err}, moe_aux "
+                             f"rel err {aux_err}, leaf {names[worst]} rel "
+                             f"L2 {err[worst]} (tol {tols[worst]}), float32 "
+                             f"{first32} (tol {TRAIN_TOL})")
     del gk, gp, g32
     torch.cuda.empty_cache()
 
@@ -2275,11 +2588,13 @@ def _train_run(dev, cfg, phase: str, kernels: tuple) -> dict:
     def one_step():
         carry[0] = step_fn(carry[0], TRAIN_STEPS)[0]
 
-    by_name, prof_ms = device_split(one_step, calls=1)
-    families = step_families(by_name)
+    by_name, prof_ms, scoped = device_split(one_step, calls=1,
+                                            scope=MOE_SCOPE)
+    families = step_families(by_name, scoped)
     busy = sum(families.values()) / 1e3
     top = sorted(((k, us) for k, (us, _) in by_name.items()),
                  key=lambda kv: -kv[1])[:12]
+    moe_top = sorted(scoped.items(), key=lambda kv: -kv[1])[:8]
     # the profiler slows the host, so the busy share is taken against the
     # median step without it
     share = busy / (1e3 * step_s)
@@ -2288,7 +2603,10 @@ def _train_run(dev, cfg, phase: str, kernels: tuple) -> dict:
           f"({1e3 * step_s!r} ms); by family (ms): "
           f"{ {k: v / 1e3 for k, v in families.items()} }; heaviest "
           f"device operations (ms): "
-          f"{ {k[:60]: v / 1e3 for k, v in top} }")
+          f"{ {k[:60]: v / 1e3 for k, v in top} }"
+          + ("" if not scoped else
+             f"; heaviest inside {MOE_SCOPE} (ms): "
+             f"{ {k[:60]: v / 1e3 for k, v in moe_top} }"))
     del state, carry
     torch.cuda.empty_cache()
     wall = time.perf_counter() - t_phase
@@ -2298,6 +2616,11 @@ def _train_run(dev, cfg, phase: str, kernels: tuple) -> dict:
             "step_ms_all": [1e3 * x for x in times],
             "tokens_per_s": TRAIN_B * TRAIN_S / step_s, "peak_bytes": peak,
             "first_step": {"loss_rel_err": loss_err,
+                           "moe_aux_rel_err": aux_err,
+                           "leaves_held_to_twice_bf16_noise": {
+                               names[i]: (err[i], tols[i]) for i in moved},
+                           "flipped_tokens_by_layer": flipped,
+                           "float32": first32,
                            "max_leaf_rel_l2": err[worst],
                            "median_leaf_rel_l2": statistics.median(err),
                            "plain_bf16_vs_f32_max": max(noise),
@@ -2308,7 +2631,9 @@ def _train_run(dev, cfg, phase: str, kernels: tuple) -> dict:
                               "busy_share_of_median_step": share,
                               "family_ms": {k: v / 1e3
                                             for k, v in families.items()},
-                              "top_ms": {k[:60]: v / 1e3 for k, v in top}},
+                              "top_ms": {k[:60]: v / 1e3 for k, v in top},
+                              "moe_top_ms": {k[:60]: v / 1e3
+                                             for k, v in moe_top}},
             "init_s": init_s, "phase_s": wall}
 
 
@@ -2374,6 +2699,225 @@ def phase_supervisor(dev) -> dict:
             "steps_wasted": st.steps_wasted, "losses": losses,
             "restored_bit_equal_leaves": sum(same), "leaves": len(same),
             "launches": launches, "phase_s": time.perf_counter() - t_phase}
+
+
+class watch_routes:
+    """Records every MoE routing (``repro_torch.models.moe.route``) made
+    inside the block: per call (one a MoE layer a step, and one more a
+    layer where remat recomputes it), the chosen and the kept experts of
+    each token as (B, S, E) masks, each token's top-k gap (the k-th
+    largest router logit less the (k+1)-th), and the address of the
+    router's storage (which names the layer)."""
+
+    def __enter__(self):
+        import torch
+
+        from repro_torch.models import moe
+
+        self._moe, self._route, self.calls = moe, moe.route, []
+
+        def spy(x, router, *, top_k, C):
+            r = self._route(x, router, top_k=top_k, C=C)
+            logits, idx = r["logits"], r["idx"]
+            kept = r["keep"].gather(1, torch.argsort(r["order"], dim=-1))
+            chosen = torch.zeros(logits.shape, dtype=torch.uint8,
+                                 device=x.device)
+            kept_mask = chosen.clone().scatter_(
+                2, idx, kept.view(idx.shape).to(torch.uint8))
+            chosen.scatter_(2, idx, 1)
+            top = torch.sort(logits, dim=-1, descending=True).values
+            gap = (top[..., top_k - 1] - top[..., top_k]
+                   if top_k < logits.shape[-1]
+                   else torch.full(idx.shape[:2], math.inf, device=x.device))
+            self.calls.append((chosen, kept_mask, gap, router.data_ptr()))
+            return r
+
+        moe.route = spy
+        return self
+
+    def __exit__(self, *exc):
+        self._moe.route = self._route
+        return False
+
+
+def route_flips(calls_a: list, calls_b: list) -> dict:
+    """(token, layer) routes of two runs of the same inputs, prefill
+    (S > 1) and decode apart: how many chose other experts, how many kept
+    other experts (the capacity line), and the smallest top-k gap of run b
+    among those that chose others."""
+    if len(calls_a) != len(calls_b):
+        raise AssertionError(f"routings: {len(calls_a)} against "
+                             f"{len(calls_b)}")
+    out = {}
+    for part in ("prefill", "decode"):
+        n = chosen = kept = 0
+        gaps = []
+        for (ca, ka, *_), (cb, kb, gb, _) in zip(calls_a, calls_b):
+            if ca.shape != cb.shape:
+                raise AssertionError(f"routing shapes {tuple(ca.shape)} "
+                                     f"against {tuple(cb.shape)}")
+            if (ca.shape[1] > 1) != (part == "prefill"):
+                continue
+            other = (ca != cb).any(-1)
+            n += other.numel()
+            chosen += int(other.sum())
+            kept += int((ka != kb).any(-1).sum())
+            if bool(other.any()):
+                gaps.append(float(gb[other].min()))
+        out[part] = {"routes": n, "chose_other_experts": chosen,
+                     "kept_other_experts": kept,
+                     "min_gap_of_flipped": min(gaps) if gaps else None}
+    return out
+
+
+def flips_by_router(calls_a: list, calls_b: list) -> dict:
+    """Tokens whose chosen or kept experts differ between two runs of the
+    same inputs, by router storage address (one a MoE layer), counted at
+    each layer's first routing (the forward; a remat recompute repeats
+    it)."""
+    out: dict = {}
+    for (ca, ka, _, ptr), (cb, kb, *_) in zip(calls_a, calls_b):
+        if ptr not in out:
+            out[ptr] = int(((ca != cb).any(-1) | (ka != kb).any(-1)).sum())
+    return out
+
+
+def phase_train_moe(dev) -> dict:
+    """Phase 14 (c): granite-moe-1b-a400m at full width and depth through
+    ``repro_torch.launch.train``'s functions (:func:`_train_run`):
+    ``flash_attention`` twice a layer a step and ``flash_attention_bwd``
+    once, the first step's ``moe_aux`` and router gradients held with the
+    rest."""
+    from repro_torch.configs import get_config
+
+    return _train_run(dev, get_config("granite-moe-1b-a400m"), "14 (c)",
+                      ("flash_attention", "flash_attention_bwd"))
+
+
+def phase_arctic(dev) -> dict:
+    """Phase 14 (d): arctic-480b at full width, its depth cut to
+    ``ARCTIC_LAYERS`` (``dataclasses.replace``): one prefill of
+    ``SERVE_REQUESTS`` x ``SERVE_PROMPT`` tokens on the kernels and on the
+    plain route, in bf16 and then with the same weights in float32
+    (converted in place, one leaf at a time: both copies do not fit). The
+    float32 last-position logits agree within ``SERVE_TOL_F32``; the bf16
+    ones within twice the plain bf16 route's own distance from the float32
+    plain route (relative L2), as phase 9 holds bf16 logits;
+    ``flash_attention`` once a layer on each kernel run and nothing on the
+    plain ones; two bf16 prefills bit-equal; prefill ms, peak device memory
+    and the routing flips between the bf16 routes."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _cuda
+    from repro_torch.models import model as M
+    from repro_torch.train.optimizer import tree_leaves
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    cfg = dataclasses.replace(get_config("arctic-480b"),
+                              n_layers=ARCTIC_LAYERS)
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, seed=0, device=dev)
+    torch.cuda.synchronize(dev)
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated(dev)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    tokens = torch.tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab, (SERVE_REQUESTS, SERVE_PROMPT)), device=dev)
+    B, S = tokens.shape
+
+    def prefill(backend):
+        caches = M.init_caches(cfg, B, S, device=dev,
+                               dtype=params["embed"].dtype)
+        return M.prefill(cfg, params, tokens, caches=caches,
+                         backend=backend)[0]
+
+    def timed(backend):
+        prefill(backend)                 # warm-up at the shape, uncounted
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        _cuda.reset_launches()                       # the main path
+        t0 = time.perf_counter()
+        logits = prefill(backend)
+        torch.cuda.synchronize(dev)
+        ms = 1e3 * (time.perf_counter() - t0)
+        launches = {n: c for n, c in _cuda.LAUNCHES.items() if c}
+        want = {"flash_attention": cfg.n_layers} if backend == "auto" else {}
+        if launches != want:
+            raise AssertionError(f"arctic-480b {backend} launches {launches} "
+                                 f"(want {want})")
+        if logits.shape != (B, 1, cfg.vocab) or not bool(
+                torch.isfinite(logits).all()):
+            raise AssertionError(f"arctic-480b logits {tuple(logits.shape)}"
+                                 " not finite or of the wrong shape")
+        return dict(logits=logits, ms=ms, launches=launches,
+                    peak=torch.cuda.max_memory_allocated(dev))
+
+    runs = {}
+    for backend in ("auto", "plain"):
+        runs[backend] = timed(backend)
+        with watch_routes() as w:
+            again = prefill(backend)
+        if not torch.equal(again, runs[backend]["logits"]):
+            raise AssertionError(f"arctic-480b {backend}: two prefills "
+                                 "differ")
+        runs[backend]["routes"] = w.calls
+    k, p = runs["auto"], runs["plain"]
+    flips = route_flips(k["routes"], p["routes"])
+    # the same weights in float32, one leaf at a time
+    stack = [params]
+    while stack:
+        node = stack.pop()
+        for key, val in (node.items() if isinstance(node, dict)
+                         else enumerate(node)):
+            if isinstance(val, (dict, list)):
+                stack.append(val)
+            else:
+                node[key] = val.float()
+                del val
+                torch.cuda.empty_cache()
+    k32, p32 = timed("auto"), timed("plain")
+    err32 = _close_or_raise("arctic-480b f32 prefill logits", k32["logits"],
+                            p32["logits"], SERVE_TOL_F32)
+    noise = _rel_l2(p["logits"], p32["logits"])
+    tol = 2 * noise
+    rel = _rel_l2(k["logits"], p["logits"])
+    err = float((k["logits"].float() - p["logits"].float()).abs().max())
+    print(f"[arctic] arctic-480b full width, {cfg.n_layers} of 35 layers, "
+          f"params={n_params} init_s={init_s!r} init peak={init_peak}; "
+          f"prefill {B} x {S}: bf16 kernels {k['ms']!r} ms (peak "
+          f"{k['peak']}), bf16 plain {p['ms']!r} ms (peak {p['peak']}), "
+          f"f32 kernels {k32['ms']!r} ms (peak {k32['peak']}), f32 plain "
+          f"{p32['ms']!r} ms (peak {p32['peak']}); f32 last logits max abs "
+          f"err={err32!r} (tol {SERVE_TOL_F32}); bf16 last logits rel L2="
+          f"{rel!r} (tol {tol!r} = 2 x the plain bf16 route's rel L2 from "
+          f"f32 {noise!r}), max abs err={err!r}; routes kernels vs plain: "
+          f"{flips['prefill']}; flash_attention launches {cfg.n_layers} a "
+          f"kernel run")
+    if not rel <= tol:
+        raise AssertionError(f"arctic-480b bf16 prefill logits rel L2 {rel} "
+                             f"> {tol} (2 x the bf16 noise {noise})")
+    record = {"arch": cfg.name, "layers": cfg.n_layers,
+              "launches": k["launches"]["flash_attention"],
+              "launches_f32": k32["launches"]["flash_attention"],
+              "logits_rel_l2": rel,
+              "logits_max_abs_err": err, "tol": tol, "bf16_noise": noise,
+              "logits_err_f32": err32, "tol_f32": SERVE_TOL_F32,
+              "prefill_ms": k["ms"], "plain_prefill_ms": p["ms"],
+              "prefill_ms_f32": k32["ms"], "plain_prefill_ms_f32": p32["ms"],
+              "peak_bytes": k["peak"], "plain_peak_bytes": p["peak"],
+              "peak_bytes_f32": k32["peak"], "init_s": init_s,
+              "init_peak_bytes": init_peak, "route_flips": flips}
+    del params, stack, runs, k, p, k32, p32
+    torch.cuda.empty_cache()
+    record["phase_s"] = time.perf_counter() - t_phase
+    print(f"[arctic] phase 14 (d) wall_s={record['phase_s']!r}")
+    return record
 
 
 def ptxas_report(log: str) -> list:
@@ -2557,6 +3101,11 @@ def main() -> int:
     mamba_kernels = phase_train_mamba_kernels(dev, first_scan_bwd)
     mamba_train = phase_train_mamba(dev)
     print(f"[train-mamba] phase 13 wall_s={time.perf_counter() - t13!r}")
+    t14 = time.perf_counter()
+    moe_kernels = phase_train_kernels(dev, MOE_BWD_CASES, "14 (a)")
+    moe_train = phase_train_moe(dev)
+    arctic = phase_arctic(dev)
+    print(f"[moe] phase 14 (a, c, d) wall_s={time.perf_counter() - t14!r}")
     launches = {"net_rerate": golden["net_rerate"],
                 "event_engine": scale["event_engine"]}
     by_path = {name: {p: paths[p][name] for p, ks in PATH_KERNELS.items()
@@ -2564,8 +3113,14 @@ def main() -> int:
                for name in ("strategy_plan", "st_cost", "value_score")}
     for name, counts in by_path.items():
         launches[name] = sum(counts.values())
+    # each serving path's counts, and arctic-480b's prefill (phase 14 (d))
+    by_serving = {}
     for arch, r in served.items():
-        launches[r["kernel"]] = r["launches"]
+        by_serving.setdefault(r["kernel"], {})[arch] = r["launches"]
+    by_serving["flash_attention"]["arctic-480b depth 1 prefill"] = \
+        arctic["launches"]
+    for name, counts in by_serving.items():
+        launches[name] = sum(counts.values())
 
     sources = {"event_engine": ("src/repro_torch/csrc/event_engine.cu",
                                 "src/repro/kernels/event_engine/kernel.py:39"),
@@ -2663,6 +3218,7 @@ def main() -> int:
                                "bound_ms", "bound_by")} for r in rows[1:]],
             "serving": {a: {k: v for k, v in r.items() if k != "kernel"}
                         for a, r in served.items() if r["kernel"] == name},
+            "launches_by_path": by_serving[name],
             **({"routes": {r["shape"]: r["ms"] for r in rows},
                 "ptxas": dict(ptxas.get(name, [])),
                 "tensor_core_instructions": sass["tensor_core_instructions"]}
@@ -2670,8 +3226,15 @@ def main() -> int:
         })
     # the backward: the gemma3-1b global layer is its path's main shape;
     # its launches are the full-width training run's (phase 12 (b))
-    rows = train_kernels["flash_attention_bwd"]
+    rows = (train_kernels["flash_attention_bwd"]
+            + [r for r in moe_kernels["flash_attention_bwd"]
+               if r["dtype"] == "bfloat16"])
+    bwd_f32 = [r for r in moe_kernels["flash_attention_bwd"]
+               if r["dtype"] == "float32"]
     row = rows[0]
+    bwd_launches = {a: t["launches"]["flash_attention_bwd"]
+                    for a, t in (("gemma3-1b", train),
+                                 ("granite-moe-1b-a400m", moe_train))}
     summary.append({
         "name": "flash_attention_bwd", "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
@@ -2680,7 +3243,8 @@ def main() -> int:
             "the TPU kernel has no backward; the reference differentiates "
             "its jnp stand-in attention_blockwise "
             "(src/repro/models/attention.py:62) with jax.value_and_grad"),
-        "launches": train["launches"]["flash_attention_bwd"],
+        "launches": sum(bwd_launches.values()),
+        "launches_by_path": bwd_launches,
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": row["ms"], "plain_ms": row["plain_ms"],
         "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
@@ -2705,6 +3269,14 @@ def main() -> int:
                            "same_inputs_err")}
                          for r in rows[1:]],
         "training": {k: v for k, v in train.items() if k != "launches"},
+        "training_moe": {k: v for k, v in moe_train.items()
+                         if k != "launches"},
+        "float32": [{k: r[k] for k in
+                     ("shape", "max_abs_err", "errors", "tolerances", "ms",
+                      "plain_ms", "wrapper_ms", "fwd_bwd_ms", "library_ms",
+                      "library_backend", "library_wrapper_ms", "split_us",
+                      "bound_ms", "bound_by")}
+                    for r in bwd_f32],
         "supervisor": supervised,
         "ptxas": dict(ptxas.get("flash_attention_bwd", [])),
         "hgmma_instructions": sass["bwd_tensor_core_instructions"],
@@ -2748,8 +3320,13 @@ def main() -> int:
             entry["lse_forward"] = [{k: r[k] for k in ("shape", "lse_ms",
                                                        "lse_err")}
                                     for r in train_kernels[
-                                        "flash_attention_bwd"]]
-            entry["launches_training"] = train["launches"]["flash_attention"]
+                                        "flash_attention_bwd"]
+                                    + moe_kernels["flash_attention_bwd"]]
+            entry["launches_training"] = {
+                a: t["launches"]["flash_attention"]
+                for a, t in (("gemma3-1b", train),
+                             ("granite-moe-1b-a400m", moe_train))}
+            entry["arctic"] = arctic
         if entry["name"] == "selective_scan":
             entry["launches_training"] = \
                 mamba_train["launches"]["selective_scan"]

@@ -102,6 +102,12 @@ class ArchConfig:
         from repro_torch.models.model import count_params_analytic
         return count_params_analytic(self)
 
+    def active_param_count(self) -> int:
+        """Parameters one token passes through: a MoE layer's top-k
+        experts of its ``num_experts``."""
+        from repro_torch.models.model import count_params_analytic
+        return count_params_analytic(self, active_only=True)
+
     def reduced(self) -> "ArchConfig":
         """Same family, laptop scale — used by the CPU tests."""
         pat = self.layer_pattern
@@ -131,13 +137,16 @@ class ArchConfig:
 
 
 #: The architectures whose blocks the port serves (``attn``, ``attn_local``,
-#: ``mamba1``); the reference registers five more (ROADMAP queue 1).
+#: ``mamba1``, the MoE feed-forward); the reference registers three more
+#: (ROADMAP queue 1).
 _REGISTRY: dict[str, str] = {
     "gemma3-1b": "repro_torch.configs.gemma3_1b",
     "falcon-mamba-7b": "repro_torch.configs.falcon_mamba_7b",
     "granite-3-8b": "repro_torch.configs.granite_3_8b",
     "qwen2-72b": "repro_torch.configs.qwen2_72b",
     "gemma2-27b": "repro_torch.configs.gemma2_27b",
+    "granite-moe-1b-a400m": "repro_torch.configs.granite_moe_1b_a400m",
+    "arctic-480b": "repro_torch.configs.arctic_480b",
 }
 
 

@@ -1,5 +1,7 @@
 // Flash attention backward, bf16 on Hopper's tensor cores: dQ, dK and dV of
-// every attention layer of gemma3-1b at each training step.
+// every attention layer of gemma3-1b at each training step. A float32 route
+// on the CUDA cores (flash_attention_bwd_f32, at the end of the file) takes
+// float32 inputs.
 //
 // The TPU kernel it stands beside, _flash_kernel
 // (src/repro/kernels/flash_attention/kernel.py:29, pallas_call at :113), has
@@ -889,6 +891,314 @@ int launch_bwd(BwdParams& p, const void* q, const void* k, const void* v,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// The float32 route: SIMT on the CUDA cores (the forward's float32 prefill
+// route, flash_kernel<float, HD> in flash_attention.cu, writes the lse it
+// reads). The same three steps and the same contract as the bf16 route:
+// Delta, then dK/dV, then dQ, every sum in float32 in a fixed order and no
+// float atomics, so two calls give bit-equal gradients; no rounding of P or
+// dS, so the plain version (flash_attention_bwd_ref) is the exact gradient.
+//
+// Bound by operations on the CUDA cores (67 TFLOP/s in float32): the five
+// products of the bf16 route, ~21.5 GFLOP at gemma3-1b's global layer and
+// at granite-moe-1b-a400m's layer, ~0.32 ms. This first form is simple, not
+// fast: 32 x 32 tiles in shared memory (rows padded by one float, so a
+// warp's 16 key rows fall in 16 banks), 256 threads, each thread two rows
+// by two keys of S and dP, then eight threads a key (dK/dV) or a query row
+// (dQ) along hd. dkdv_f32_kernel is one block per (batch, KV head, 32-key
+// tile) that walks the G heads of its KV head one after another, so the
+// group's sum is a loop in one block, not a cluster; dq_f32_kernel is one
+// block per (batch, head, 32-query tile).
+
+constexpr int kF32Threads = 256;
+constexpr int kF32Tile = 32;                 // keys of a key tile, queries
+constexpr int kF32PsPitch = kF32Tile + 1;    // floats a P / dS row
+
+struct F32Params {
+  const float* q;
+  const float* k;
+  const float* v;
+  const float* o;
+  const float* dout;
+  int64_t qs[3], ks[3], vs[3], os[3], dos[3];   // batch, head, position
+  const float* lse;            // (B, H, Sq), natural log
+  float* delta;                // (B, H, Sq)
+  float* dq;
+  float* dk;
+  float* dv;
+  int64_t dqs[3], dks[3], dvs[3];
+  int64_t batch;
+  int heads, kv_heads, group;
+  int64_t sq, skv, kend;
+  int causal;
+  int64_t window;              // <= 0: no window
+  float softcap;               // <= 0: no softcap
+  int64_t q_offset;
+  float scale;
+};
+
+template <int HD>
+constexpr size_t f32_smem_bytes() {
+  // K, V, Q, dO tiles (pitch HD + 1), P and dS, lse and Delta
+  return sizeof(float) * (4 * kF32Tile * (HD + 1) +
+                          2 * kF32Tile * kF32PsPitch + 2 * kF32Tile);
+}
+
+// Delta_i = sum_d dO_i,d O_i,d, one warp a (batch, head, query) row.
+template <int HD>
+__global__ void __launch_bounds__(kF32Threads)
+    delta_f32_kernel(const F32Params p) {
+  const int lane = threadIdx.x & 31;
+  const int64_t row = (int64_t)blockIdx.x * (kF32Threads / 32) +
+                      (threadIdx.x >> 5);
+  if (row >= p.batch * p.heads * p.sq) return;   // the whole warp
+  const int64_t i = row % p.sq;
+  const int64_t h = (row / p.sq) % p.heads;
+  const int64_t b = row / (p.sq * p.heads);
+  const float* orow = p.o + b * p.os[0] + h * p.os[1] + i * p.os[2];
+  const float* drow = p.dout + b * p.dos[0] + h * p.dos[1] + i * p.dos[2];
+  float sum = 0.f;
+  for (int d = lane; d < HD; d += 32) sum += orow[d] * drow[d];
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    sum += __shfl_xor_sync(0xffffffffu, sum, off);
+  if (lane == 0) p.delta[row] = sum;
+}
+
+// Copies rows [pos0, pos0 + 32) of one head into a padded tile; rows at or
+// past `end` are zeros.
+template <int HD>
+__device__ inline void f32_tile(float* dst, const float* base,
+                                const int64_t* st, int64_t b, int64_t h,
+                                int64_t pos0, int64_t end) {
+  for (int e = threadIdx.x; e < kF32Tile * HD; e += kF32Threads) {
+    const int r = e / HD;
+    const int d = e % HD;
+    const int64_t pos = pos0 + r;
+    dst[r * (HD + 1) + d] =
+        pos < end ? base[b * st[0] + h * st[1] + pos * st[2] + d] : 0.f;
+  }
+}
+
+// S and dP of the 32 x 32 tile pair, two rows by two keys a thread, then P
+// and dS into shared memory (zero where the pair is masked or the row
+// does not exist). Writes dS only when `ps` is null.
+template <int HD>
+__device__ inline void f32_scores(const F32Params& p, const float* sQ,
+                                  const float* sdO, const float* sK,
+                                  const float* sV, const float* sLse,
+                                  const float* sDelta, int64_t q0,
+                                  int64_t key0, float* ps, float* ds) {
+  constexpr int P = HD + 1;
+  const int i0 = (threadIdx.x / 16) * 2;
+  const int j0 = (threadIdx.x % 16) * 2;
+  float s[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+  float dp[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+#pragma unroll 4
+  for (int d = 0; d < HD; ++d) {
+    const float qa = sQ[i0 * P + d], qb = sQ[(i0 + 1) * P + d];
+    const float oa = sdO[i0 * P + d], ob = sdO[(i0 + 1) * P + d];
+    const float ka = sK[j0 * P + d], kb = sK[(j0 + 1) * P + d];
+    const float va = sV[j0 * P + d], vb = sV[(j0 + 1) * P + d];
+    s[0][0] += qa * ka;
+    s[0][1] += qa * kb;
+    s[1][0] += qb * ka;
+    s[1][1] += qb * kb;
+    dp[0][0] += oa * va;
+    dp[0][1] += oa * vb;
+    dp[1][0] += ob * va;
+    dp[1][1] += ob * vb;
+  }
+#pragma unroll
+  for (int a = 0; a < 2; ++a) {
+    const int i = i0 + a;
+    const int64_t qi = q0 + i;
+    const int64_t qpos = p.q_offset + qi;
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const int j = j0 + c;
+      const int64_t key = key0 + j;
+      const bool ok = qi < p.sq && key < p.kend &&
+                      (!p.causal || key <= qpos) &&
+                      (p.window <= 0 || key > qpos - p.window);
+      float x = s[a][c] * p.scale;
+      float g = p.scale;
+      if (p.softcap > 0.f) {
+        const float th = tanhf(x / p.softcap);
+        x = p.softcap * th;
+        g = (1.f - th * th) * p.scale;
+      }
+      const float pr = ok ? expf(x - sLse[i]) : 0.f;
+      if (ps != nullptr) ps[i * kF32PsPitch + j] = pr;
+      ds[i * kF32PsPitch + j] = pr * (dp[a][c] - sDelta[i]) * g;
+    }
+  }
+}
+
+// lse and Delta of rows [q0, q0 + 32) of head h (zero past Sq).
+__device__ inline void f32_row_stats(const F32Params& p, float* sLse,
+                                     float* sDelta, int64_t b, int64_t h,
+                                     int64_t q0) {
+  if (threadIdx.x < kF32Tile) {
+    const int64_t qi = q0 + threadIdx.x;
+    const int64_t at = (b * p.heads + h) * p.sq + qi;
+    sLse[threadIdx.x] = qi < p.sq ? p.lse[at] : 0.f;
+    sDelta[threadIdx.x] = qi < p.sq ? p.delta[at] : 0.f;
+  }
+}
+
+// dK and dV of one 32-key tile of one KV head: the G query heads in
+// ascending order, each over the query tiles that see the key tile, each
+// tile's rows in ascending order; eight threads a key, dims t % 8 + 8 m.
+template <int HD>
+__global__ void __launch_bounds__(kF32Threads)
+    dkdv_f32_kernel(const F32Params p) {
+  constexpr int P = HD + 1;
+  constexpr int kDims = HD / 8;
+  extern __shared__ float smem_f32[];
+  float* sK = smem_f32;
+  float* sV = sK + kF32Tile * P;
+  float* sQ = sV + kF32Tile * P;
+  float* sdO = sQ + kF32Tile * P;
+  float* sP = sdO + kF32Tile * P;
+  float* sdS = sP + kF32Tile * kF32PsPitch;
+  float* sLse = sdS + kF32Tile * kF32PsPitch;
+  float* sDelta = sLse + kF32Tile;
+
+  const int64_t key0 = (int64_t)blockIdx.x * kF32Tile;
+  const int64_t kvh = blockIdx.y;
+  const int64_t b = blockIdx.z;
+  const int j = threadIdx.x / 8;
+  const int dlane = threadIdx.x % 8;
+  float dk[kDims], dv[kDims];
+#pragma unroll
+  for (int m = 0; m < kDims; ++m) dk[m] = dv[m] = 0.f;
+
+  // queries [lo, hi) that can see some key of the tile
+  const int64_t k1 = key0 + kF32Tile < p.kend ? key0 + kF32Tile : p.kend;
+  int64_t lo = 0, hi = 0;
+  if (k1 > key0) {
+    lo = p.causal && key0 - p.q_offset > 0 ? key0 - p.q_offset : 0;
+    hi = p.sq;
+    if (p.window > 0 && k1 - 1 + p.window - p.q_offset < hi)
+      hi = k1 - 1 + p.window - p.q_offset;
+  }
+  if (hi > lo) {
+    f32_tile<HD>(sK, p.k, p.ks, b, kvh, key0, p.kend);
+    f32_tile<HD>(sV, p.v, p.vs, b, kvh, key0, p.kend);
+  }
+  for (int g = 0; g < p.group; ++g) {
+    const int64_t h = kvh * p.group + g;
+    for (int64_t q0 = lo - lo % kF32Tile; q0 < hi; q0 += kF32Tile) {
+      __syncthreads();   // the last tile's Q, dO, P and dS are read
+      f32_tile<HD>(sQ, p.q, p.qs, b, h, q0, p.sq);
+      f32_tile<HD>(sdO, p.dout, p.dos, b, h, q0, p.sq);
+      f32_row_stats(p, sLse, sDelta, b, h, q0);
+      __syncthreads();
+      f32_scores<HD>(p, sQ, sdO, sK, sV, sLse, sDelta, q0, key0, sP, sdS);
+      __syncthreads();
+      for (int i = 0; i < kF32Tile; ++i) {
+        const float pr = sP[i * kF32PsPitch + j];
+        const float ds = sdS[i * kF32PsPitch + j];
+#pragma unroll
+        for (int m = 0; m < kDims; ++m) {
+          dv[m] += pr * sdO[i * P + dlane + 8 * m];
+          dk[m] += ds * sQ[i * P + dlane + 8 * m];
+        }
+      }
+    }
+  }
+  const int64_t key = key0 + j;
+  if (key < p.skv) {
+    float* dkrow = p.dk + b * p.dks[0] + kvh * p.dks[1] + key * p.dks[2];
+    float* dvrow = p.dv + b * p.dvs[0] + kvh * p.dvs[1] + key * p.dvs[2];
+#pragma unroll
+    for (int m = 0; m < kDims; ++m) {
+      dkrow[dlane + 8 * m] = dk[m];
+      dvrow[dlane + 8 * m] = dv[m];
+    }
+  }
+}
+
+// dQ of one 32-query tile of one head: the key tiles it sees in ascending
+// order, each tile's keys in ascending order; eight threads a query row.
+template <int HD>
+__global__ void __launch_bounds__(kF32Threads)
+    dq_f32_kernel(const F32Params p) {
+  constexpr int P = HD + 1;
+  constexpr int kDims = HD / 8;
+  extern __shared__ float smem_f32[];
+  float* sK = smem_f32;
+  float* sV = sK + kF32Tile * P;
+  float* sQ = sV + kF32Tile * P;
+  float* sdO = sQ + kF32Tile * P;
+  float* sdS = sdO + kF32Tile * P + kF32Tile * kF32PsPitch;
+  float* sLse = sdS + kF32Tile * kF32PsPitch;
+  float* sDelta = sLse + kF32Tile;
+
+  const int64_t q0 = (int64_t)blockIdx.x * kF32Tile;
+  const int64_t h = blockIdx.y;
+  const int64_t kvh = h / p.group;
+  const int64_t b = blockIdx.z;
+  const int i = threadIdx.x / 8;
+  const int dlane = threadIdx.x % 8;
+  float dq[kDims];
+#pragma unroll
+  for (int m = 0; m < kDims; ++m) dq[m] = 0.f;
+
+  f32_tile<HD>(sQ, p.q, p.qs, b, h, q0, p.sq);
+  f32_tile<HD>(sdO, p.dout, p.dos, b, h, q0, p.sq);
+  f32_row_stats(p, sLse, sDelta, b, h, q0);
+  // keys [lo, hi) that some query of the tile can see
+  const int64_t last_q = (q0 + kF32Tile < p.sq ? q0 + kF32Tile : p.sq) - 1;
+  int64_t lo = 0, hi = p.kend;
+  if (p.window > 0 && p.q_offset + q0 - p.window + 1 > 0)
+    lo = p.q_offset + q0 - p.window + 1;
+  if (p.causal && p.q_offset + last_q + 1 < hi) hi = p.q_offset + last_q + 1;
+  for (int64_t key0 = lo - lo % kF32Tile; key0 < hi; key0 += kF32Tile) {
+    __syncthreads();   // Q, dO staged; the last tile's K, V and dS are read
+    f32_tile<HD>(sK, p.k, p.ks, b, kvh, key0, p.kend);
+    f32_tile<HD>(sV, p.v, p.vs, b, kvh, key0, p.kend);
+    __syncthreads();
+    f32_scores<HD>(p, sQ, sdO, sK, sV, sLse, sDelta, q0, key0, nullptr, sdS);
+    __syncthreads();
+    for (int jj = 0; jj < kF32Tile; ++jj) {
+      const float ds = sdS[i * kF32PsPitch + jj];
+#pragma unroll
+      for (int m = 0; m < kDims; ++m) dq[m] += ds * sK[jj * P + dlane + 8 * m];
+    }
+  }
+  const int64_t qi = q0 + i;
+  if (qi < p.sq) {
+    float* row = p.dq + b * p.dqs[0] + h * p.dqs[1] + qi * p.dqs[2];
+#pragma unroll
+    for (int m = 0; m < kDims; ++m) row[dlane + 8 * m] = dq[m];
+  }
+}
+
+template <int HD>
+int launch_bwd_f32(const F32Params& p, cudaStream_t st) {
+  constexpr size_t smem = f32_smem_bytes<HD>();
+  static bool kv_configured = false, q_configured = false;
+  if (int e = allow_smem(dkdv_f32_kernel<HD>, smem, &kv_configured)) return e;
+  if (int e = allow_smem(dq_f32_kernel<HD>, smem, &q_configured)) return e;
+  const int64_t rows = p.batch * p.heads * p.sq;
+  const int64_t rows_a_block = kF32Threads / 32;
+  delta_f32_kernel<HD><<<(unsigned)((rows + rows_a_block - 1) / rows_a_block),
+                         kF32Threads, 0, st>>>(p);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  dkdv_f32_kernel<HD><<<dim3((unsigned)((p.skv + kF32Tile - 1) / kF32Tile),
+                             (unsigned)p.kv_heads, (unsigned)p.batch),
+                        kF32Threads, smem, st>>>(p);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  dq_f32_kernel<HD><<<dim3((unsigned)((p.sq + kF32Tile - 1) / kF32Tile),
+                           (unsigned)p.heads, (unsigned)p.batch),
+                      kF32Threads, smem, st>>>(p);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // q (B, H, Sq, hd), k and v (B, KV, Skv, hd), o and dout (B, H, Sq, hd), each
@@ -966,6 +1276,66 @@ extern "C" int flash_attention_bwd(
     case 64: return launch_bwd<64>(p, q, k, v, strides, st);
     case 128: return launch_bwd<128>(p, q, k, v, strides, st);
     case 256: return launch_bwd<256>(p, q, k, v, strides, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The float32 route (see F32Params): the same tensors as
+// flash_attention_bwd, float32 through their element strides (unit stride
+// along hd), no plan and no tile table. Three launches on `stream` of
+// `device`; returns the first CUDA error (0 on success).
+extern "C" int flash_attention_bwd_f32(
+    const float* q, const float* k, const float* v, const float* o,
+    const float* dout, const float* lse, float* delta, float* dq, float* dk,
+    float* dv, const int64_t* strides, int64_t B, int64_t H, int64_t KV,
+    int64_t Sq, int64_t Skv, int64_t kend, int64_t hd, int causal,
+    int64_t window, float softcap, int64_t q_offset, float scale,
+    void* stream, int device) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (B < 1 || KV < 1 || H % KV != 0 || Sq < 1 || Skv < 1 || kend < 1 ||
+      kend > Skv || B > 65535 || H > 65535)
+    return (int)cudaErrorInvalidValue;
+  F32Params p;
+  p.q = q;
+  p.k = k;
+  p.v = v;
+  p.o = o;
+  p.dout = dout;
+  for (int i = 0; i < 3; ++i) {
+    p.qs[i] = strides[i];
+    p.ks[i] = strides[3 + i];
+    p.vs[i] = strides[6 + i];
+    p.os[i] = strides[9 + i];
+    p.dos[i] = strides[12 + i];
+    p.dqs[i] = strides[15 + i];
+    p.dks[i] = strides[18 + i];
+    p.dvs[i] = strides[21 + i];
+  }
+  p.lse = lse;
+  p.delta = delta;
+  p.dq = dq;
+  p.dk = dk;
+  p.dv = dv;
+  p.batch = B;
+  p.heads = (int)H;
+  p.kv_heads = (int)KV;
+  p.group = (int)(H / KV);
+  p.sq = Sq;
+  p.skv = Skv;
+  p.kend = kend;
+  p.causal = causal;
+  p.window = window;
+  p.softcap = softcap;
+  p.q_offset = q_offset;
+  p.scale = scale;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (hd) {
+    case 16: return launch_bwd_f32<16>(p, st);
+    case 32: return launch_bwd_f32<32>(p, st);
+    case 64: return launch_bwd_f32<64>(p, st);
+    case 128: return launch_bwd_f32<128>(p, st);
+    case 256: return launch_bwd_f32<256>(p, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -1,8 +1,11 @@
 """Launch of the CUDA flash attention backward
 (``csrc/flash_attention_bwd.cu``): three kernels on the current stream,
 ``Delta = rowsum(dO * O)``, then dK/dV per (batch, query head, key tile)
-in thread-block clusters and dQ per row tile. bf16 only: the float32
-backward is not ported yet (ROADMAP queue 1).
+in thread-block clusters and dQ per row tile, on the tensor cores for bf16
+inputs; for float32 inputs the same three steps on the CUDA cores
+(``flash_attention_bwd_f32``: dK/dV per (batch, KV head, 32-key tile), its
+G heads summed in a loop, dQ per (batch, head, 32-query tile)), with no
+plan and no tile table.
 
 :func:`plan_bwd` settles every launch from the shapes alone, the tile walk
 included: for each launch position, the key tile of a dK/dV block with the
@@ -184,12 +187,26 @@ def _table_on(plan: BwdPlan, device: torch.device) -> torch.Tensor:
     return torch.tensor(plan.table(), dtype=torch.int32).to(device)
 
 
+#: the dtypes the kernel takes: bf16 (tensor cores), float32 (CUDA cores)
+DTYPES = (torch.bfloat16, torch.float32)
+
+
+@functools.lru_cache(maxsize=1)
+def _f32_entry():
+    """The float32 route's C function, beside the library's entry point."""
+    vp, i64 = ctypes.c_void_p, ctypes.c_int64
+    return _cuda.symbol("flash_attention_bwd", "flash_attention_bwd_f32",
+                        [vp] * 11 + [i64] * 7 + [ctypes.c_int, i64,
+                                                 ctypes.c_float, i64,
+                                                 ctypes.c_float, vp,
+                                                 ctypes.c_int])
+
+
 def _check(q, k, v, o, lse, do) -> None:
-    if q.dtype != torch.bfloat16:
+    if q.dtype not in DTYPES:
         raise ValueError(
-            f"flash_attention_bwd: dtype {q.dtype}; the backward kernel is "
-            "bf16 only (the float32 backward is not ported yet, ROADMAP "
-            "queue 1)")
+            f"flash_attention_bwd: dtype {q.dtype}; the backward kernel "
+            "takes bf16 or float32")
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_bwd: the CUDA kernel takes CUDA "
                          f"tensors, got {q.device}")
@@ -214,9 +231,9 @@ def _check(q, k, v, o, lse, do) -> None:
         if t.device != q.device or t.dtype != q.dtype:
             raise ValueError(f"flash_attention_bwd: {label} must be "
                              f"{q.dtype} on {q.device}")
-        # rows are copied by TMA: 16-byte aligned base and strides
+        # bf16 rows are copied by TMA: 16-byte aligned base and strides
         if t.stride(3) != 1 or t.data_ptr() % 16 or any(
-                s % 8 for s in t.stride()[:3]):
+                s % (16 // t.element_size()) for s in t.stride()[:3]):
             raise ValueError(f"flash_attention_bwd: {label} needs a unit "
                              "stride along hd and 16-byte aligned rows, got "
                              f"strides {t.stride()}")
@@ -231,13 +248,14 @@ def flash_attention_bwd_kernel(q: torch.Tensor, k: torch.Tensor,
                                ) -> tuple[torch.Tensor, torch.Tensor,
                                           torch.Tensor]:
     """Same contract as :func:`.ref.flash_attention_bwd_ref`, on CUDA bf16
-    tensors, launched on the current stream. The inputs may be strided
-    views of ``(B, S, heads, hd)`` storage; dq, dk and dv come back as
+    or float32 tensors, launched on the current stream. The inputs may be
+    strided views of ``(B, S, heads, hd)`` storage; dq, dk and dv come back as
     ``(B, heads, S, hd)`` views of such storage, so the model's gradients
     need no transpose. The float32 ``Delta`` scratch is allocated here, and
     the plan's tile table on a shape's first call, which waits for its copy
     to the card (no later call synchronises); the kernels allocate nothing.
-    Deterministic: the same inputs give bit-equal gradients."""
+    Deterministic: the same inputs give bit-equal gradients. Float32 takes
+    the CUDA-core route, which needs no plan."""
     _check(q, k, v, o, lse, do)
     if window is not None and window < 1:
         raise ValueError(f"flash_attention_bwd: window {window} < 1")
@@ -252,12 +270,22 @@ def flash_attention_bwd_kernel(q: torch.Tensor, k: torch.Tensor,
     kend = Skv if kv_len is None else max(0, min(Skv, kv_len))
     if Sq == 0 or Skv == 0 or B == 0 or kend == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
-    plan = plan_bwd(B, H, KV, Sq, Skv, kend, hd, causal=causal,
-                    window=window, q_offset=q_offset)
-    table = _table_on(plan, dev)
     delta = torch.empty((B, H, Sq), dtype=torch.float32, device=dev)
     strides = (ctypes.c_int64 * 24)(*(s for t in (q, k, v, o, do, dq, dk, dv)
                                       for s in t.stride()[:3]))
+    if q.dtype == torch.float32:
+        err = _f32_entry()(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), strides, B, H, KV, Sq, Skv, kend,
+            hd, int(causal), 0 if window is None else window,
+            0.0 if softcap is None else softcap, q_offset, hd ** -0.5,
+            _cuda.stream(dev), dev.index)
+        _cuda.check("flash_attention_bwd", err)
+        return dq, dk, dv
+    plan = plan_bwd(B, H, KV, Sq, Skv, kend, hd, causal=causal,
+                    window=window, q_offset=q_offset)
+    table = _table_on(plan, dev)
     err = _cuda.entry_point("flash_attention_bwd")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),

@@ -10,13 +10,12 @@ step.
   params_from_jax(cfg, tree)                   -> params
 
 ``batch`` is a dict of ``tokens`` and ``labels``, (B, S) integers.
-Decoder-only models with ``attn``, ``attn_local`` and ``mamba1`` blocks,
-each served and trained on the card through its hand-written kernels
-(attention trains there in bf16 only: the float32 flash backward is not
-ported yet). The encoder-decoder and VLM front ends and the other block
-kinds raise ``NotImplementedError`` (ROADMAP queue 1). On one card there is
-no activation sharding, so the reference's ``shardctx.anchor_batch`` has no
-counterpart.
+Decoder-only models with ``attn``, ``attn_local`` and ``mamba1`` blocks
+and dense or MoE feed-forwards, each served and trained on the card
+through its hand-written kernels, in bf16 or float32. The encoder-decoder
+and VLM front ends and the other block kinds raise ``NotImplementedError``
+(ROADMAP queue 1). On one card there is no activation sharding, so the
+reference's ``shardctx.anchor_batch`` has no counterpart.
 """
 
 from __future__ import annotations
@@ -221,16 +220,24 @@ def params_from_jax(cfg: ArchConfig, tree: dict, *,
 # analytic parameter counts
 # --------------------------------------------------------------------------
 
-def count_params_analytic(cfg: ArchConfig) -> int:
+def count_params_analytic(cfg: ArchConfig, active_only: bool = False) -> int:
     """Parameters of the blocks the port serves (the reference's count for
-    those configs)."""
+    those configs); ``active_only`` counts a MoE layer's top-k experts
+    instead of all of them."""
     check_config(cfg)
     D, F, V = cfg.d_model, cfg.d_ff, cfg.vocab
     hd = cfg.resolved_head_dim()
     H, KV = cfg.n_heads, cfg.n_kv_heads
-    attn = D * H * hd * 2 + D * KV * hd * 2 + 2 * D + 3 * D * F
+    attn = D * H * hd * 2 + D * KV * hd * 2 + 2 * D
     if cfg.qkv_bias:
         attn += H * hd + 2 * KV * hd
+    if cfg.moe is not None:
+        e = cfg.moe.top_k if active_only else cfg.moe.num_experts
+        attn += D * cfg.moe.num_experts + e * 3 * D * F
+        if cfg.moe.dense_residual:
+            attn += 3 * D * F
+    else:
+        attn += 3 * D * F
     total = 0
     for kind in list(cfg.layer_pattern) * cfg.n_groups + list(
             cfg.remainder_pattern):

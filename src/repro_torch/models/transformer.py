@@ -20,8 +20,10 @@ The caches are updated in place (the reference returns new ones): an
 attention cache is allocated once at the serving length and each step
 writes its token's K/V at slot ``pos``.
 
-Blocks ``attn``, ``attn_local`` and ``mamba1`` are ported; ``mamba2``,
-``shared_attn`` and MoE feed-forward raise ``NotImplementedError`` (ROADMAP
+Blocks ``attn``, ``attn_local`` and ``mamba1`` are ported, and an
+attention block's feed-forward is the MoE one (:mod:`.moe`, with the dense
+residual MLP beside it where the config has one) when ``cfg.moe`` is set;
+``mamba2`` and ``shared_attn`` raise ``NotImplementedError`` (ROADMAP
 queue 1). In train mode ``mamba1`` runs its scan through
 :class:`~repro_torch.kernels.selective_scan.SelectiveScanFn` (the CUDA
 forward and backward kernels on the card).
@@ -37,6 +39,7 @@ from .attention import attention_blockwise, attention_decode, attention_train
 from .common import ACTS, normal_init, rms_norm, rope
 from .mamba import init_mamba1, mamba1_decode, mamba1_forward
 from .mlp import gated_mlp, init_gated_mlp
+from .moe import init_moe, moe_ffn
 
 ATTN_KINDS = ("attn", "attn_local")
 KINDS = ATTN_KINDS + ("mamba1",)
@@ -53,8 +56,6 @@ def check_config(cfg: ArchConfig) -> None:
     for kind in cfg.layer_pattern:
         if kind not in KINDS:
             raise _not_ported(f"block kind {kind!r}")
-    if cfg.moe is not None:
-        raise _not_ported("the MoE feed-forward")
     if cfg.act not in ACTS:
         raise _not_ported(f"act={cfg.act!r} (the plain GELU MLP)")
     if cfg.enc_dec:
@@ -84,7 +85,11 @@ def _init_attn_block(gen: torch.Generator, cfg: ArchConfig) -> dict:
         p["bq"] = torch.zeros((H * hd,), dtype=bf16, device=dev)
         p["bk"] = torch.zeros((KV * hd,), dtype=bf16, device=dev)
         p["bv"] = torch.zeros((KV * hd,), dtype=bf16, device=dev)
-    p["mlp"] = init_gated_mlp(gen, D, cfg.d_ff)
+    if cfg.moe is not None:
+        p["moe"] = init_moe(gen, D, cfg.d_ff, cfg.moe.num_experts,
+                            cfg.moe.dense_residual)
+    else:
+        p["mlp"] = init_gated_mlp(gen, D, cfg.d_ff)
     return p
 
 
@@ -194,7 +199,15 @@ def _apply_attn(cfg: ArchConfig, kind: str, p: dict, x: torch.Tensor, *,
                              window=window, softcap=cfg.attn_softcap,
                              backend=backend)
     x = x + o.reshape(B, S, H * hd) @ p["wo"]
-    y = gated_mlp(p["mlp"], rms_norm(x, p["ln2"]), cfg.act)
+    h2 = rms_norm(x, p["ln2"])
+    if cfg.moe is not None:
+        # SiLU experts (the reference's default act), cfg.act's residual
+        y = moe_ffn(p["moe"], h2, top_k=cfg.moe.top_k,
+                    capacity_factor=cfg.moe.capacity_factor)
+        if cfg.moe.dense_residual:
+            y = y + gated_mlp(p["moe"]["res"], h2, cfg.act)
+    else:
+        y = gated_mlp(p["mlp"], h2, cfg.act)
     return x + y, cache
 
 
@@ -232,10 +245,14 @@ def _train_stack(cfg: ArchConfig, params: dict, x: torch.Tensor, *,
                  remat: bool, backend: str) -> torch.Tensor:
     """The train-mode stack: one checkpointed segment per group and per
     remainder block under ``remat`` (each recomputed in the backward, so
-    training holds one segment's activations at a time)."""
+    training holds one segment's activations at a time). Each segment runs
+    inside a ``train_segment`` profiler range, so that a trace tells its
+    recompute from the backward node that triggered it."""
     def run(blocks, h):
-        for kind, p in blocks:
-            h, _ = apply_block(cfg, kind, p, h, mode="train", backend=backend)
+        with torch.profiler.record_function("train_segment"):
+            for kind, p in blocks:
+                h, _ = apply_block(cfg, kind, p, h, mode="train",
+                                   backend=backend)
         return h
 
     segments = [[(kind, g[f"b{i}"]) for i, kind in enumerate(cfg.layer_pattern)]

@@ -23,6 +23,7 @@ import torch
 from ..configs.base import ArchConfig
 from ..device import resolve_device
 from ..models import model as M
+from ..models.moe import moe_aux_loss
 from .optimizer import (OptimizerConfig, adamw_update, init_compress_state,
                         init_opt_state, tree_map)
 
@@ -31,15 +32,29 @@ from .optimizer import (OptimizerConfig, adamw_update, init_compress_state,
 class TrainConfig:
     n_microbatches: int = 1
     remat: bool = True
+    moe_aux_weight: float = 0.01
     opt: OptimizerConfig = OptimizerConfig()
 
 
 def micro_loss(cfg: ArchConfig, tcfg: TrainConfig, params: dict,
                micro: dict, backend: str = "auto"):
-    """Loss and metrics of one microbatch. MoE configs raise in
-    ``check_config`` (ROADMAP queue 1), so the reference's auxiliary
-    load-balancing term has no branch here."""
-    return M.loss_fn(cfg, params, micro, remat=tcfg.remat, backend=backend)
+    """Loss and metrics of one microbatch. For a MoE config, the
+    reference's probe: the load-balancing loss of group 0's block ``b0``
+    router on the embedded microbatch, weighted by ``moe_aux_weight`` and
+    reported as ``moe_aux`` (every layer's router still feels it through
+    the shared embeddings)."""
+    loss, metrics = M.loss_fn(cfg, params, micro, remat=tcfg.remat,
+                              backend=backend)
+    if cfg.moe is not None:
+        tokens = micro["tokens"].to(params["embed"].device, torch.int64)
+        x = M._embed_tokens(cfg, params, tokens)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        block = params["groups"][0].get("b0") if params["groups"] else None
+        if block is not None and "moe" in block:
+            aux = moe_aux_loss(block["moe"], x, top_k=cfg.moe.top_k)
+        loss = loss + tcfg.moe_aux_weight * aux
+        metrics = dict(metrics, moe_aux=aux)
+    return loss, metrics
 
 
 def _split_micro(batch: dict, n: int) -> list[dict]:

@@ -12,7 +12,8 @@ every head dim, a call replayed from a CUDA graph), the scan's edges
 boundary, a call replayed from a CUDA graph) — at that file's
 tolerances: ``TOL`` for attention, ten times ``TOL`` for the scan (1,024
 steps of a recurrence in another rounding order). The training path's
-backwards likewise: ``flash_attention_bwd`` at ``TOL``, and the scan's
+backwards likewise: ``flash_attention_bwd`` at ``TOL`` (the bf16
+route, and the float32 route on the CUDA cores), and the scan's
 forward with round states (y and h_last bit-equal to the serving
 forward's) and ``selective_scan_bwd`` (``SCAN_BWD``: the training shape,
 ragged rounds, channel blocks and state widths, with and without
@@ -474,28 +475,32 @@ def test_cuda_scan_streams_like_one_call():
 
 # -- the backward -------------------------------------------------------------
 
-def _bwd_inputs(seed, B, H, KV, Sq, Skv, hd, kw, device="cpu"):
-    """bf16 q, k, v (contiguous) and dO (the model's (B, Sq, H, hd) storage
-    seen as (B, H, Sq, hd)); o and lse from the plain forward."""
-    q, k, v = _qkv(seed, B, H, KV, Sq, Skv, hd, "bfloat16", device)
+def _bwd_inputs(seed, B, H, KV, Sq, Skv, hd, kw, device="cpu",
+                dtype="bfloat16"):
+    """q, k, v (contiguous) and dO (the model's (B, Sq, H, hd) storage
+    seen as (B, H, Sq, hd)) in ``dtype``; o and lse from the plain
+    forward."""
+    q, k, v = _qkv(seed, B, H, KV, Sq, Skv, hd, dtype, device)
     rng = np.random.default_rng(seed + 1)
     do = torch.tensor(rng.standard_normal((B, Sq, H, hd), np.float32),
-                      device=device).bfloat16().transpose(1, 2)
+                      device=device).to(getattr(torch, dtype)).transpose(1, 2)
     o, lse = flash_attention_lse_ref(q, k, v, **kw)
     return q, k, v, o, lse, do
 
 
 def test_bwd_kernel_checks():
-    """The backward kernel is bf16 only (float32 raises, ROADMAP) and takes
-    CUDA tensors; nothing on the CPU launches it."""
+    """The backward kernel takes bf16 or float32 (float16 raises) CUDA
+    tensors; nothing on the CPU launches it."""
     kw = dict(causal=True)
     args = _bwd_inputs(0, 1, 2, 1, 8, 8, 16, kw)
     before = dict(_cuda.LAUNCHES)
-    f32 = [t.float() for t in args]
-    with pytest.raises(ValueError, match="bf16 only"):
-        flash_attention_bwd_kernel(*f32, **kw)
+    f16 = [t if t is args[4] else t.half() for t in args]
+    with pytest.raises(ValueError, match="bf16 or float32"):
+        flash_attention_bwd_kernel(*f16, **kw)
     with pytest.raises(ValueError, match="CUDA tensors"):
         flash_attention_bwd_kernel(*args, **kw)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        flash_attention_bwd_kernel(*(t.float() for t in args), **kw)
     assert _cuda.LAUNCHES == before
 
 
@@ -574,8 +579,8 @@ def test_cuda_attention_lse_matches_plain(B, H, KV, Sq, Skv, hd, window,
                                             (None, 30.0)])
 def test_cuda_flash_autograd_matches_plain(window, softcap):
     """FlashAttentionFn on the kernels against backend="plain" on the card:
-    the model's (B, S, heads, hd) leaves, gradients through the views. In
-    float32 the CUDA backward raises (not ported yet)."""
+    the model's (B, S, heads, hd) leaves, gradients through the views; bf16
+    at its tolerance, float32 (the CUDA-core route) at 2e-5."""
     dev = _card()
     rng = np.random.default_rng(7)
     B, S, H, KV, hd = 2, 160, 4, 1, 128
@@ -592,14 +597,65 @@ def test_cuda_flash_autograd_matches_plain(window, softcap):
         (o.transpose(1, 2).float() * w).sum().backward()
         return [x.grad for x in xs]
 
+    for dtype, name in ((torch.bfloat16, "bfloat16"),
+                        (torch.float32, "float32")):
+        before = _cuda.LAUNCHES["flash_attention_bwd"]
+        got = grads("auto", dtype)
+        assert _cuda.LAUNCHES["flash_attention_bwd"] == before + 1
+        for g, want in zip(got, grads("plain", dtype)):
+            assert g.dtype == dtype
+            np.testing.assert_allclose(_f32(g), _f32(want), atol=TOL[name],
+                                       rtol=TOL[name])
+
+
+#: the float32 backward: every head dim, causal and not, window, softcap,
+#: a chunk against a longer key range (q_offset, kv_len), G 1 to 16,
+#: ragged 32-key and 32-query tiles, and the training shapes (gemma3-1b's
+#: global layer, granite-moe-1b-a400m's layer)
+BWD_F32 = [
+    (2, 4, 2, 70, 70, 16, None, None, 0, None),
+    (1, 8, 2, 45, 45, 32, 16, None, 0, None),
+    (2, 16, 8, 130, 130, 64, None, None, 0, None),
+    (1, 4, 1, 100, 100, 128, 64, 30.0, 0, None),
+    (2, 4, 1, 77, 77, 256, None, 50.0, 0, None),
+    (1, 4, 1, 48, 300, 256, None, None, 200, 248),
+    (1, 4, 2, 33, 200, 64, 16, None, 100, 133),
+    (1, 16, 1, 3, 3, 16, None, None, 0, None),
+    (4, 4, 1, 1024, 1024, 256, None, None, 0, None),
+    (4, 16, 8, 1024, 1024, 64, None, None, 0, None),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(BWD_IDS, BWD_F32)
+def test_cuda_attention_bwd_f32_matches_plain(B, H, KV, Sq, Skv, hd, window,
+                                              softcap, q_offset, kv_len):
+    """The float32 route (CUDA cores) against the plain backward, which is
+    the exact float32 gradient, at float32's tolerance; the model's strided
+    layout gives the same bits; two calls are bit-equal; keys past kv_len
+    get no gradient."""
+    dev = _card()
+    kw = dict(causal=True, window=window, softcap=softcap, q_offset=q_offset,
+              kv_len=kv_len)
+    args = _bwd_inputs(B * Sq + hd + 2, B, H, KV, Sq, Skv, hd, kw, dev,
+                       "float32")
+    want = flash_attention_bwd_ref(*args, **kw)
     before = _cuda.LAUNCHES["flash_attention_bwd"]
-    got = grads("auto", torch.bfloat16)
+    got = [t.clone() for t in flash_attention_bwd_kernel(*args, **kw)]
     assert _cuda.LAUNCHES["flash_attention_bwd"] == before + 1
-    for g, want in zip(got, grads("plain", torch.bfloat16)):
-        np.testing.assert_allclose(_f32(g), _f32(want), atol=TOL["bfloat16"],
-                                   rtol=TOL["bfloat16"])
-    with pytest.raises(ValueError, match="bf16 only"):
-        grads("auto", torch.float32)
+    again = flash_attention_bwd_kernel(*args, **kw)
+    views = [t.transpose(1, 2).contiguous().transpose(1, 2)
+             for t in args[:4]] + [args[4], args[5].contiguous()]
+    got_views = flash_attention_bwd_kernel(*views, **kw)
+    tol = TOL["float32"]
+    for g, a, gv, w in zip(got, again, got_views, want):
+        assert g.shape == w.shape and g.dtype == torch.float32
+        np.testing.assert_allclose(_f32(g), _f32(w), atol=tol, rtol=tol)
+        assert torch.equal(g, a)
+        assert torch.equal(gv, g)
+    if kv_len is not None:
+        assert not bool(got[1][:, :, kv_len:].any())
+        assert not bool(got[2][:, :, kv_len:].any())
 
 
 # -- the scan backward ----------------------------------------------------------

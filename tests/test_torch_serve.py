@@ -4,7 +4,8 @@ prefill and decode logits, greedy tokens, the grid router and the CLI.
 The reduced forms of every config whose blocks the port serves
 (``gemma3-1b`` local/global windows, ``falcon-mamba-7b`` Mamba-1,
 ``granite-3-8b`` GQA, ``qwen2-72b`` QKV bias, ``gemma2-27b`` both
-softcaps) run the reference's weights, carried by ``params_from_jax``, with
+softcaps, ``granite-moe-1b-a400m`` and ``arctic-480b`` the MoE
+feed-forward, the latter with its dense residual) run the reference's weights, carried by ``params_from_jax``, with
 the norms and biases moved off zero so that a dropped term shows. Logits
 are held at every step, teacher-forced along the reference's greedy tokens:
 in float32 at 2e-5 (atol and rtol; observed ~4e-7), which catches mask,
@@ -34,7 +35,7 @@ from repro.models import model as JM
 from repro.serve.engine import GridRouter as JaxRouter
 from repro.serve.engine import Request as JaxRequest
 from repro.serve.engine import ServeEngine as JaxEngine
-from repro_torch.configs import MoEConfig, arch_ids, get_config
+from repro_torch.configs import arch_ids, get_config
 from repro_torch.core import GridTopology
 from repro_torch.grid.datagrid import DataGridService
 from repro_torch.launch import serve as launch_serve
@@ -46,7 +47,7 @@ from repro_torch.serve.engine import (GridRouter, Request, ServeEngine,
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 B, S, NEW = 2, 40, 8          # prompts longer than the reduced 32-key window
 ARCHS = ["gemma3-1b", "falcon-mamba-7b", "granite-3-8b", "qwen2-72b",
-         "gemma2-27b"]
+         "gemma2-27b", "granite-moe-1b-a400m", "arctic-480b"]
 
 
 def test_registry_and_configs_match_reference():
@@ -179,8 +180,7 @@ def test_unported_paths_raise():
     for replace in (dict(layer_pattern=("mamba2",)),
                     dict(layer_pattern=("attn", "shared_attn")),
                     dict(enc_dec=True), dict(vision_tokens=8),
-                    dict(act="gelu"),
-                    dict(moe=MoEConfig(num_experts=4, top_k=2))):
+                    dict(act="gelu")):
         with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
             M.init_params(dataclasses.replace(base, **replace), device="cpu")
 
