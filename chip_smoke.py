@@ -73,7 +73,9 @@ Phases, each raising on failure (the script then exits non-zero):
    float32), and at the MoE configs' layers (``MOE_ATTN_CASES``):
    granite-moe-1b-a400m's prefill and split decode (H 16, KV 8, hd 64) in
    bf16 and float32, arctic-480b's prefill (H 56, KV 8, hd 128) in bf16
-   and float32; ``selective_scan`` for the falcon-mamba-7b
+   and float32, and zamba2-7b's shared block (``ZAMBA_ATTN_CASES``: H 32,
+   KV 32, hd 112) in prefill and decode, bf16 and float32;
+   ``selective_scan`` for the falcon-mamba-7b
    prefill (Bz 4, S 1,024, Di 8,192, N 16) and decode (S 1 from a state;
    timed cold, cycling over ``MAMBA_LAYERS`` states, warm beside it),
    each against its plain version within ``TOL`` (ten times for the scan),
@@ -84,20 +86,24 @@ Phases, each raising on failure (the script then exits non-zero):
    (``plan_launch``: bf16 prefill on the tensor cores, float32 prefill on
    the CUDA cores, decode as splits of the key range and a merge);
 9. serving (``SERVE``): ``repro_torch.launch.serve`` at full width for
-   gemma3-1b, falcon-mamba-7b and granite-moe-1b-a400m (phase 14 (b); its
+   gemma3-1b, falcon-mamba-7b, granite-moe-1b-a400m (phase 14 (b); its
    routes that differ between the bf16 kernel and plain runs counted by
-   ``route_flips``) — seeded weights, the two-pod router, 4
+   ``route_flips``) and zamba2-7b at full depth (phase 15 (b)) — seeded
+   weights, the two-pod router, 4
    requests of 1,024-token prompts, 16 new tokens — on the kernels, then the
    same model and inputs on the plain route (``backend="plain"``) on the
    card, then both routes again with the weights in float32. Each kernel
-   must launch once per layer per step (``n_layers`` x 17) on the bf16
-   kernel run, the plain route never. The float32 prefill logits must agree
+   must launch once per step in each layer whose kind runs it
+   (``kernel_layers`` x 17: every layer for gemma3-1b, falcon-mamba-7b and
+   granite, zamba2-7b's 11 shared-block applications of its 81 layers)
+   on the bf16 kernel run, the plain route never. The float32 prefill logits must agree
    within ``SERVE_TOL_F32``; the bf16 ones within twice the bf16 noise (how
    far the plain route's bf16 logits lie from its float32 ones); the greedy
    tokens by ``greedy_agreement``'s margin rule at each tolerance. Each
    model is warmed up at the served shape on both routes before the timed
-   runs; a MoE model's bf16 prefill and one decode step are then profiled
-   by family (``serve_split``);
+   runs; a MoE model's or zamba2-7b's bf16 prefill and one decode step are
+   then profiled by family (``serve_split``; ``ssd``: Mamba-2's chunk
+   work, by its profiler range ``SSD_SCOPE``);
 10. telemetry, audit and sanitizer on the card (``phase_telemetry``):
    ``grid_500_saturated`` (2,000 jobs) under ``obs="trace"`` on the card
    and the CPU — its metrics equal to phase 5's card run, the four phase
@@ -193,7 +199,17 @@ Phases, each raising on failure (the script then exits non-zero):
    the plain route in bf16, then with the weights in float32; the float32
    logits within ``SERVE_TOL_F32``, the bf16 ones within twice the plain
    bf16 route's distance from float32 (relative L2), peak memory and the
-   routes that differ.
+   routes that differ;
+15. Mamba-2 and the shared attention block: (a) ``flash_attention_bwd``
+   at zamba2-7b's shared layer (B 4, H 32, KV 32, S 1,024, hd 112;
+   ``ZAMBA_BWD_CASES``) as 14 (a), in bf16 and on the float32 route (the
+   forward's cases are in phase 8); (b) is phase 9's zamba2-7b run; (c)
+   zamba2-7b trained at full width, its depth cut to ``ZAMBA_TRAIN_LAYERS``
+   (2 groups and 4 remainder mamba2 blocks), as 12 (b): the first step
+   within ``TRAIN_TOL`` of the plain route in the loss and every leaf,
+   the shared block's included, 8 steps with a falling loss, 4
+   ``flash_attention`` and 2 ``flash_attention_bwd`` launches a step, one
+   profiled step by family with ``ssd``.
 
 The launch counts of each path are reset just before it runs and read just
 after. The second-to-last line is the kernel summary as JSON; the last line
@@ -304,7 +320,8 @@ TOL = {"bfloat16": 2e-2, "float32": 2e-5}   # tests/test_kernels.py
 #: Serving runs (phase 9): arch, its kernel, requests, prompt, new tokens.
 SERVE = (("gemma3-1b", "flash_attention"), ("falcon-mamba-7b",
                                             "selective_scan"),
-         ("granite-moe-1b-a400m", "flash_attention"))
+         ("granite-moe-1b-a400m", "flash_attention"),
+         ("zamba2-7b", "flash_attention"))
 SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW = 4, 1024, 16
 #: kernel route against plain route with float32 weights, at full depth
 #: (the bf16 runs are held to twice the bf16 noise measured in the run)
@@ -353,6 +370,24 @@ MOE_ATTN_CASES = (
 #: distance from float32, measured in the run, and its float32 logits to
 #: SERVE_TOL_F32
 ARCTIC_LAYERS = 1
+#: Phase 15: zamba2-7b's shared attention block (32 query heads on 32 KV
+#: heads, hd 112) as serving calls the forward (phase 8: a 1,024-token
+#: prefill, decode against a 1,040-slot cache; name, dtype, B, H, KV, hd,
+#: Sq, q_offset, kv_len) and as training calls the backward (15 (a), as
+#: BWD_CASES), and the depth zamba2-7b trains at in 15 (c): 81 layers need
+#: ~92.5 GB of training state at 16 bytes a parameter, 18 (2 groups of six
+#: mamba2 blocks and the shared block, then 4 mamba2 blocks) ~25.1 GB
+ZAMBA_ATTN_CASES = (
+    ("zamba2-7b prefill bf16", "bfloat16", 4, 32, 32, 112, 1024, 0, None),
+    ("zamba2-7b decode bf16", "bfloat16", 4, 32, 32, 112, 1, 1039, 1040),
+    ("zamba2-7b prefill f32", "float32", 4, 32, 32, 112, 1024, 0, None),
+    ("zamba2-7b decode f32", "float32", 4, 32, 32, 112, 1, 1039, 1040),
+)
+ZAMBA_BWD_CASES = (
+    ("zamba2-7b shared", "bfloat16", 4, 32, 32, 1024, 112, None, None),
+    ("zamba2-7b shared", "float32", 4, 32, 32, 1024, 112, None, None),
+)
+ZAMBA_TRAIN_LAYERS = 18
 #: Phase 13: the scan backward's dtypes at falcon-mamba-7b's shape
 #: (MAMBA_BZ x TRAIN_S, MAMBA_DI, MAMBA_N), and the depth falcon-mamba-7b
 #: trains at (64 layers need 112.1 GB of training state; 8 need 17.7 GB)
@@ -1556,8 +1591,8 @@ def _close_or_raise(name: str, got, want, tol: float) -> float:
 def phase_model_kernels(dev) -> dict:
     """Parity and timing of flash_attention and selective_scan at the
     serving path's shapes (gemma3-1b's ``ATTN_CASES``, then the MoE
-    configs' ``MOE_ATTN_CASES``); returns per-kernel records (one per
-    case)."""
+    configs' ``MOE_ATTN_CASES`` and zamba2-7b's ``ZAMBA_ATTN_CASES``);
+    returns per-kernel records (one per case)."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -1574,7 +1609,7 @@ def phase_model_kernels(dev) -> dict:
               for name, dtype, sq, window, cap, q_offset, kv_len in ATTN_CASES]
              + [(name, dtype, B, H, KV, hd, sq, None, None, q_offset, kv_len)
                 for name, dtype, B, H, KV, hd, sq, q_offset, kv_len
-                in MOE_ATTN_CASES])
+                in MOE_ATTN_CASES + ZAMBA_ATTN_CASES])
     for (name, dtype, B, H, KV, hd, sq, window, cap, q_offset,
          kv_len) in cases:
         dt = getattr(torch, dtype)
@@ -1720,7 +1755,7 @@ def phase_serve(dev) -> dict:
     out = {}
     for arch, kernel in SERVE:
         cfg = get_config(arch)
-        t0 = time.perf_counter()
+        t_arch = t0 = time.perf_counter()
         params = M.init_params(cfg, seed=0, device=dev)
         torch.cuda.synchronize(dev)
         init_s = time.perf_counter() - t0
@@ -1733,7 +1768,8 @@ def phase_serve(dev) -> dict:
         _cuda.reset_launches()
         p = _serve(arch, cfg, params, "plain", "bf16 plain")
         plain_launches = dict(_cuda.LAUNCHES)
-        want = cfg.n_layers * (1 + SERVE_NEW)
+        layers = kernel_layers(cfg, kernel)
+        want = layers * (1 + SERVE_NEW)
         others = {n: c for n, c in launches.items() if n != kernel and c}
         if launches[kernel] != want or others or any(plain_launches.values()):
             raise AssertionError(
@@ -1786,6 +1822,7 @@ def phase_serve(dev) -> dict:
             print(f"[serve] {arch} bf16 routes kernels vs plain (a route is "
                   f"a (token, layer); decode after the first differing "
                   f"token sees other inputs): {flips}")
+        if cfg.moe is not None or "mamba2" in cfg.layer_pattern:
             split = serve_split(cfg, params, dev, k)
         print(f"[serve] {arch} params={cfg.param_count()} init_s={init_s!r} "
               f"f32 prefill logits max_abs_err={err32!r} (tol "
@@ -1793,7 +1830,8 @@ def phase_serve(dev) -> dict:
               f"max_abs_err={err!r} (tol {tol!r} = 2 x bf16 noise "
               f"{noise!r}), tokens held={held}, equal={equal}/"
               f"{k['tokens'].size}; {kernel} launches={launches[kernel]} "
-              f"(= {cfg.n_layers} layers x {1 + SERVE_NEW} steps)")
+              f"(= {layers} of {cfg.n_layers} layers x {1 + SERVE_NEW} "
+              f"steps); wall_s={time.perf_counter() - t_arch!r}")
         out[arch] = dict(kernel=kernel, launches=launches[kernel],
                          logit_err=err, logit_tol=tol, logit_err_f32=err32,
                          held=held, held_f32=held32, route_flips=flips,
@@ -1809,12 +1847,14 @@ def phase_serve(dev) -> dict:
     return out
 
 
-def serve_split(cfg, params, dev, timed: dict, calls: int = 5) -> dict:
+def serve_split(cfg, params, dev, timed: dict, calls: int = 2) -> dict:
     """A bf16 prefill of ``SERVE_REQUESTS`` x ``SERVE_PROMPT`` tokens and
     one decode step after it on the kernels, each ``calls`` times under the
     profiler: device busy ms a call by family (:func:`step_families`) and
     its share of the unprofiled run's prefill ms and decode ms a token
-    (``timed``, from :func:`_serve`; the profiler slows the host)."""
+    (``timed``, from :func:`_serve`; the profiler slows the host, and
+    reading back its trace takes seconds a call at zamba2-7b's 81 layers,
+    hence two calls)."""
     import numpy as np
     import torch
 
@@ -1833,9 +1873,11 @@ def serve_split(cfg, params, dev, timed: dict, calls: int = 5) -> dict:
                    timed["decode_ms_per_token"])}
     out = {}
     for part, (fn, ms) in steps.items():
-        by_name, wall, scoped = device_split(fn, calls=calls, scope=MOE_SCOPE)
+        by_name, wall, scoped = device_split(fn, calls=calls,
+                                             scopes=(MOE_SCOPE, SSD_SCOPE))
         family_ms = {k: v / 1e3 / calls
-                     for k, v in step_families(by_name, scoped).items()}
+                     for k, v in step_families(by_name, scoped[MOE_SCOPE],
+                                               scoped[SSD_SCOPE]).items()}
         busy = sum(family_ms.values())
         out[part] = {"profiled_wall_ms": wall, "busy_ms": busy,
                      "busy_share_of_timed": busy / ms,
@@ -1848,15 +1890,15 @@ def serve_split(cfg, params, dev, timed: dict, calls: int = 5) -> dict:
     return out
 
 
-def device_split(fn, calls: int = 20, scope: str | None = None
+def device_split(fn, calls: int = 20, scopes: tuple = ()
                  ) -> tuple[dict, float, dict]:
     """``calls`` back-to-back ``fn()`` calls under ``torch.profiler``
     after a warm-up: each device operation's name with ``(total µs,
     launches)`` as the trace recorded them (it may drop some, so divide by
     the launches it saw, not by ``calls``), the wall ms per call (host
-    clock, ended by a sync), and, when ``scope`` names a
-    ``record_function`` range, the device µs by name of the operations
-    launched inside it (:func:`scoped_device_us`)."""
+    clock, ended by a sync), and for each ``record_function`` range named
+    in ``scopes`` the device µs by name of the operations launched inside
+    it (:func:`scoped_device_us`)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1879,7 +1921,7 @@ def device_split(fn, calls: int = 20, scope: str | None = None
         if e.device_type == DeviceType.CUDA and e.key not in ranges:
             us, n = by_name.get(e.key, (0.0, 0))
             by_name[e.key] = (us + e.self_device_time_total, n + e.count)
-    scoped = {} if scope is None else scoped_device_us(events, scope)
+    scoped = {scope: scoped_device_us(events, scope) for scope in scopes}
     return by_name, 1e3 * wall / calls, scoped
 
 
@@ -1925,7 +1967,9 @@ def scoped_device_us(events, scope: str) -> dict:
 
 
 #: device operations of a training step, by family (first match wins);
-#: the ``moe`` family is what no pattern takes inside the MoE
+#: the ``ssd`` family is what the hand-written kernels' families do not
+#: take inside Mamba-2's chunk range (``SSD_SCOPE``), its products
+#: included; the ``moe`` family is what no pattern takes inside the MoE
 #: feed-forward's profiler range (``MOE_SCOPE``): routing, dispatch,
 #: combine and the experts' activation, forward and backward
 STEP_FAMILIES = (
@@ -1939,19 +1983,34 @@ STEP_FAMILIES = (
               "cublas")),
     ("copy", ("Memcpy", "Memset")),
 )
+#: the families of the hand-written kernels, which no range takes from
+KERNEL_FAMILIES = ("flash_attention_bwd", "flash_attention",
+                   "selective_scan_bwd", "selective_scan")
 #: the ``record_function`` range of ``repro_torch.models.moe.moe_ffn``
 MOE_SCOPE = "moe_ffn"
+#: the ``record_function`` range of Mamba-2's SSD chunk work
+#: (``repro_torch.models.mamba.SSD_SCOPE``)
+SSD_SCOPE = "ssd"
 
 
-def step_families(by_name: dict, scoped: dict) -> dict:
-    """Device µs by family (``STEP_FAMILIES``; ``moe``: the rest of
-    ``scoped``, the device µs inside ``MOE_SCOPE``; ``other``: elementwise,
-    reductions and indexing elsewhere) of one profiled call."""
+def step_families(by_name: dict, scoped: dict,
+                  ssd: dict | None = None) -> dict:
+    """Device µs by family of one profiled call: ``STEP_FAMILIES``;
+    ``ssd``: the device µs inside ``SSD_SCOPE`` (``ssd``, by name) that
+    the hand-written kernels' families do not take, GEMMs and copies
+    included; ``moe``: the rest of ``scoped``, the device µs inside
+    ``MOE_SCOPE``; ``other``: elementwise, reductions and indexing
+    elsewhere."""
+    ssd = ssd or {}
     out = {name: 0.0 for name, _ in STEP_FAMILIES}
-    out["moe"] = out["other"] = 0.0
+    out["ssd"] = out["moe"] = out["other"] = 0.0
     for key, (us, _) in by_name.items():
         fam = next((name for name, pats in STEP_FAMILIES
                     if any(p in key for p in pats)), None)
+        if fam not in KERNEL_FAMILIES:
+            chunk = min(us, ssd.get(key, 0.0))
+            out["ssd"] += chunk
+            us -= chunk
         if fam is None:
             moe = min(us, scoped.get(key, 0.0))
             out["moe"] += moe
@@ -1987,6 +2046,19 @@ def _rel_l2(a, b) -> float:
     """||a - b|| / ||b|| in float32."""
     a, b = a.float(), b.float()
     return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+
+def kernel_layers(cfg, kernel: str) -> int:
+    """The layers of ``cfg`` that launch ``kernel`` once a step: the
+    attention kinds (each application of zamba2-7b's shared block among
+    them) for the flash attention kernels, ``mamba1`` for the scan's;
+    ``mamba2`` (plain PyTorch) launches none."""
+    from repro_torch.models.transformer import ATTN_KINDS
+
+    kinds = ATTN_KINDS if kernel.startswith("flash_attention") else (
+        "mamba1",)
+    return sum(kind in kinds for kind in list(cfg.layer_pattern)
+               * cfg.n_groups + list(cfg.remainder_pattern))
 
 
 def phase_train_kernels(dev, cases=BWD_CASES, phase: str = "12 (a)"
@@ -2417,6 +2489,7 @@ def _train_run(dev, cfg, phase: str, kernels: tuple) -> dict:
     from repro_torch.train.train_step import grad_fn
 
     fwd_name, bwd_name = kernels
+    layers = kernel_layers(cfg, fwd_name)
     t_phase = time.perf_counter()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -2445,7 +2518,7 @@ def _train_run(dev, cfg, phase: str, kernels: tuple) -> dict:
             routes["plain"] = watching.enter_context(watch_routes()).calls
         lp, mp, gp = grad_fn(cfg, run["tcfg"], params, b, backend="plain")
         lp = float(lp)
-    if hold_launches[bwd_name] != cfg.n_layers or any(
+    if hold_launches[bwd_name] != layers or any(
             _cuda.LAUNCHES[n] != c for n, c in hold_launches.items()):
         raise AssertionError(f"first step launches {hold_launches}, plain "
                              f"route {_cuda.LAUNCHES}")
@@ -2458,7 +2531,7 @@ def _train_run(dev, cfg, phase: str, kernels: tuple) -> dict:
         _cuda.reset_launches()
         lk32, mk32, gk32 = grad_fn(cfg, run["tcfg"], p32, b, backend="auto")
         lk32 = float(lk32)
-        if _cuda.LAUNCHES[bwd_name] != cfg.n_layers:
+        if _cuda.LAUNCHES[bwd_name] != layers:
             raise AssertionError(f"float32 first step launches "
                                  f"{dict(_cuda.LAUNCHES)}")
     del p32
@@ -2576,11 +2649,11 @@ def _train_run(dev, cfg, phase: str, kernels: tuple) -> dict:
           f"{bwd_name} per step={bwd / TRAIN_STEPS!r}")
     if not losses[-1] < losses[0] or not all(map(math.isfinite, losses)):
         raise AssertionError(f"the loss did not fall: {losses}")
-    if (fwd != 2 * cfg.n_layers * TRAIN_STEPS
-            or bwd != cfg.n_layers * TRAIN_STEPS or others or written):
+    if (fwd != 2 * layers * TRAIN_STEPS
+            or bwd != layers * TRAIN_STEPS or others or written):
         raise AssertionError(f"training launches {launches} (want "
-                             f"{fwd_name} 2 x {cfg.n_layers} and "
-                             f"{bwd_name} {cfg.n_layers} per step, "
+                             f"{fwd_name} 2 x {layers} and "
+                             f"{bwd_name} {layers} per step, "
                              f"nothing else), checkpoints {written}")
     # one more step under torch.profiler: device time by family
     carry = [state]
@@ -2588,13 +2661,15 @@ def _train_run(dev, cfg, phase: str, kernels: tuple) -> dict:
     def one_step():
         carry[0] = step_fn(carry[0], TRAIN_STEPS)[0]
 
-    by_name, prof_ms, scoped = device_split(one_step, calls=1,
-                                            scope=MOE_SCOPE)
-    families = step_families(by_name, scoped)
+    by_name, prof_ms, scopes = device_split(one_step, calls=1,
+                                            scopes=(MOE_SCOPE, SSD_SCOPE))
+    scoped = scopes[MOE_SCOPE]
+    families = step_families(by_name, scoped, scopes[SSD_SCOPE])
     busy = sum(families.values()) / 1e3
     top = sorted(((k, us) for k, (us, _) in by_name.items()),
                  key=lambda kv: -kv[1])[:12]
     moe_top = sorted(scoped.items(), key=lambda kv: -kv[1])[:8]
+    ssd_top = sorted(scopes[SSD_SCOPE].items(), key=lambda kv: -kv[1])[:8]
     # the profiler slows the host, so the busy share is taken against the
     # median step without it
     share = busy / (1e3 * step_s)
@@ -2606,7 +2681,10 @@ def _train_run(dev, cfg, phase: str, kernels: tuple) -> dict:
           f"{ {k[:60]: v / 1e3 for k, v in top} }"
           + ("" if not scoped else
              f"; heaviest inside {MOE_SCOPE} (ms): "
-             f"{ {k[:60]: v / 1e3 for k, v in moe_top} }"))
+             f"{ {k[:60]: v / 1e3 for k, v in moe_top} }")
+          + ("" if not ssd_top else
+             f"; heaviest inside {SSD_SCOPE} (ms): "
+             f"{ {k[:60]: v / 1e3 for k, v in ssd_top} }"))
     del state, carry
     torch.cuda.empty_cache()
     wall = time.perf_counter() - t_phase
@@ -2633,7 +2711,9 @@ def _train_run(dev, cfg, phase: str, kernels: tuple) -> dict:
                                             for k, v in families.items()},
                               "top_ms": {k[:60]: v / 1e3 for k, v in top},
                               "moe_top_ms": {k[:60]: v / 1e3
-                                             for k, v in moe_top}},
+                                             for k, v in moe_top},
+                              "ssd_top_ms": {k[:60]: v / 1e3
+                                             for k, v in ssd_top}},
             "init_s": init_s, "phase_s": wall}
 
 
@@ -2780,6 +2860,24 @@ def flips_by_router(calls_a: list, calls_b: list) -> dict:
         if ptr not in out:
             out[ptr] = int(((ca != cb).any(-1) | (ka != kb).any(-1)).sum())
     return out
+
+
+def phase_train_zamba(dev) -> dict:
+    """Phase 15 (c): zamba2-7b at full width, its depth cut from 81 to
+    ``ZAMBA_TRAIN_LAYERS`` (``dataclasses.replace``), through
+    ``repro_torch.launch.train``'s functions (:func:`_train_run`): the
+    shared attention block's two applications launch ``flash_attention``
+    twice each a step (remat recomputes it) and ``flash_attention_bwd``
+    once each; the 16 mamba2 blocks launch no kernel. The profiled step's
+    ``ssd`` family is Mamba-2's chunk work (``SSD_SCOPE``)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    cfg = dataclasses.replace(get_config("zamba2-7b"),
+                              n_layers=ZAMBA_TRAIN_LAYERS)
+    return _train_run(dev, cfg, "15 (c)",
+                      ("flash_attention", "flash_attention_bwd"))
 
 
 def phase_train_moe(dev) -> dict:
@@ -3106,6 +3204,10 @@ def main() -> int:
     moe_train = phase_train_moe(dev)
     arctic = phase_arctic(dev)
     print(f"[moe] phase 14 (a, c, d) wall_s={time.perf_counter() - t14!r}")
+    t15 = time.perf_counter()
+    zamba_kernels = phase_train_kernels(dev, ZAMBA_BWD_CASES, "15 (a)")
+    zamba_train = phase_train_zamba(dev)
+    print(f"[zamba] phase 15 (a, c) wall_s={time.perf_counter() - t15!r}")
     launches = {"net_rerate": golden["net_rerate"],
                 "event_engine": scale["event_engine"]}
     by_path = {name: {p: paths[p][name] for p, ks in PATH_KERNELS.items()
@@ -3226,15 +3328,16 @@ def main() -> int:
         })
     # the backward: the gemma3-1b global layer is its path's main shape;
     # its launches are the full-width training run's (phase 12 (b))
+    later = (moe_kernels["flash_attention_bwd"]
+             + zamba_kernels["flash_attention_bwd"])
     rows = (train_kernels["flash_attention_bwd"]
-            + [r for r in moe_kernels["flash_attention_bwd"]
-               if r["dtype"] == "bfloat16"])
-    bwd_f32 = [r for r in moe_kernels["flash_attention_bwd"]
-               if r["dtype"] == "float32"]
+            + [r for r in later if r["dtype"] == "bfloat16"])
+    bwd_f32 = [r for r in later if r["dtype"] == "float32"]
     row = rows[0]
+    trained = (("gemma3-1b", train), ("granite-moe-1b-a400m", moe_train),
+               (f"zamba2-7b depth {ZAMBA_TRAIN_LAYERS}", zamba_train))
     bwd_launches = {a: t["launches"]["flash_attention_bwd"]
-                    for a, t in (("gemma3-1b", train),
-                                 ("granite-moe-1b-a400m", moe_train))}
+                    for a, t in trained}
     summary.append({
         "name": "flash_attention_bwd", "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
@@ -3271,6 +3374,8 @@ def main() -> int:
         "training": {k: v for k, v in train.items() if k != "launches"},
         "training_moe": {k: v for k, v in moe_train.items()
                          if k != "launches"},
+        "training_zamba": {k: v for k, v in zamba_train.items()
+                           if k != "launches"},
         "float32": [{k: r[k] for k in
                      ("shape", "max_abs_err", "errors", "tolerances", "ms",
                       "plain_ms", "wrapper_ms", "fwd_bwd_ms", "library_ms",
@@ -3320,12 +3425,9 @@ def main() -> int:
             entry["lse_forward"] = [{k: r[k] for k in ("shape", "lse_ms",
                                                        "lse_err")}
                                     for r in train_kernels[
-                                        "flash_attention_bwd"]
-                                    + moe_kernels["flash_attention_bwd"]]
+                                        "flash_attention_bwd"] + later]
             entry["launches_training"] = {
-                a: t["launches"]["flash_attention"]
-                for a, t in (("gemma3-1b", train),
-                             ("granite-moe-1b-a400m", moe_train))}
+                a: t["launches"]["flash_attention"] for a, t in trained}
             entry["arctic"] = arctic
         if entry["name"] == "selective_scan":
             entry["launches_training"] = \

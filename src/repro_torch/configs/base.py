@@ -137,8 +137,8 @@ class ArchConfig:
 
 
 #: The architectures whose blocks the port serves (``attn``, ``attn_local``,
-#: ``mamba1``, the MoE feed-forward); the reference registers three more
-#: (ROADMAP queue 1).
+#: ``mamba1``, ``mamba2``, ``shared_attn``, the MoE feed-forward); the
+#: reference registers two more (ROADMAP queue 1).
 _REGISTRY: dict[str, str] = {
     "gemma3-1b": "repro_torch.configs.gemma3_1b",
     "falcon-mamba-7b": "repro_torch.configs.falcon_mamba_7b",
@@ -147,6 +147,7 @@ _REGISTRY: dict[str, str] = {
     "gemma2-27b": "repro_torch.configs.gemma2_27b",
     "granite-moe-1b-a400m": "repro_torch.configs.granite_moe_1b_a400m",
     "arctic-480b": "repro_torch.configs.arctic_480b",
+    "zamba2-7b": "repro_torch.configs.zamba2_7b",
 }
 
 

@@ -41,7 +41,10 @@
 //   16w..16w+15. S = Q K^T and O += P V run as mma.sync.m16n8k16 bf16 with
 //   float32 accumulators in registers, operands fetched with ldmatrix
 //   (.trans for V) from shared rows padded by 16 bytes (conflict-free for
-//   every head dim). The online softmax runs on the accumulator fragments:
+//   every head dim: a row is an odd number of 16-byte chunks, 2 hd / 16 +
+//   1, so the eight rows one ldmatrix reads fall in eight distinct chunks
+//   of a 128-byte line; at zamba2-7b's hd 112 that is 15 chunks, 7 pairs
+//   of 8-dim tiles along hd and 56 accumulator floats a thread). The online softmax runs on the accumulator fragments:
 //   scale, tanh softcap and the causal / window / kend mask (only on tiles
 //   that need it), row max and sum across the quad that shares a row by
 //   shuffles, in log2 units (exp2f). P is rounded to bf16 in registers and
@@ -853,6 +856,7 @@ int dispatch_decode(int64_t hd, const Params& p, int64_t KV, cudaStream_t st) {
     case 16: return launch_decode<T, 16>(p, KV, st);
     case 32: return launch_decode<T, 32>(p, KV, st);
     case 64: return launch_decode<T, 64>(p, KV, st);
+    case 112: return launch_decode<T, 112>(p, KV, st);
     case 128: return launch_decode<T, 128>(p, KV, st);
     case 256: return launch_decode<T, 256>(p, KV, st);
     default: return (int)cudaErrorInvalidValue;
@@ -864,6 +868,7 @@ int dispatch_mma(int64_t hd, const Params& p, cudaStream_t st) {
     case 16: return launch_mma<16>(p, st);
     case 32: return launch_mma<32>(p, st);
     case 64: return launch_mma<64>(p, st);
+    case 112: return launch_mma<112>(p, st);
     case 128: return launch_mma<128>(p, st);
     case 256: return launch_mma<256>(p, st);
     default: return (int)cudaErrorInvalidValue;
@@ -875,6 +880,7 @@ int dispatch_simt(int64_t hd, const Params& p, cudaStream_t st) {
     case 16: return launch_simt<16>(p, st);
     case 32: return launch_simt<32>(p, st);
     case 64: return launch_simt<64>(p, st);
+    case 112: return launch_simt<112>(p, st);
     case 128: return launch_simt<128>(p, st);
     case 256: return launch_simt<256>(p, st);
     default: return (int)cudaErrorInvalidValue;

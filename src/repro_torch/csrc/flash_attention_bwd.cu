@@ -127,29 +127,40 @@ struct BwdParams {
   float scale;
 };
 
-// The per-head-dim shape of both kernels.
+// The per-head-dim shape of both kernels. A head dim above 64 that is not
+// a multiple of the 64-column swizzle span (zamba2-7b's 112) is laid out in
+// shared memory as the next multiple, kPD (128): the tensor maps keep the
+// true extent HD, so TMA fills columns HD..kPD-1 of each tile's last atom
+// with zeros. The products that reduce over hd (S, dP) run HD / 16 k-steps
+// and never read those columns; the products whose N is hd (dV, dK, dQ)
+// run at kPD, where the zero columns of dO, Q and K give output columns
+// that are never stored (dK, dV sum and store HD columns, dQ stores HD).
+// So hd 112 runs the hd-128 shape: 128 / 112 = 1.14 times the tensor work
+// of those three products, 1.09 times that of all five.
 template <int HD>
 struct Cfg {
-  static constexpr int kWG = HD >= 128 ? 2 : 1;        // consumer warpgroups
+  static constexpr int kPD = HD <= 64 ? HD : (HD + 63) / 64 * 64;
+  static constexpr int kWG = kPD >= 128 ? 2 : 1;       // consumer warpgroups
   static constexpr int kThreads = 128 * (kWG + 1);      // + the producer's
   static constexpr int kCons = 128 * kWG;
-  static constexpr int kSpanCols = HD < 64 ? HD : 64;   // bf16 a swizzled row
+  static constexpr int kSpanCols = kPD < 64 ? kPD : 64;  // bf16 a swizzled row
   static constexpr int kSpan = 2 * kSpanCols;           // bytes
-  static constexpr int kAtoms = HD / kSpanCols;
-  static constexpr int kLayout = HD >= 64 ? 1 : (HD == 32 ? 2 : 3);
+  static constexpr int kAtoms = kPD / kSpanCols;
+  static constexpr int kLayout = kPD >= 64 ? 1 : (kPD == 32 ? 2 : 3);
+  static_assert(kPD % kSpanCols == 0 && HD % 16 == 0, "head dim");
   static constexpr uint32_t kSbo = 8 * kSpan;           // 8-row core group
   static constexpr uint32_t kAtomBytes = kTileRows * kSpan;
-  static constexpr uint32_t kTile = kAtoms * kAtomBytes;   // 64 rows x HD
+  static constexpr uint32_t kTile = kAtoms * kAtomBytes;   // 64 rows x kPD
   // stages of the Q, dO ring (dK/dV) and of the K, V ring (dQ): four
   // where shared memory holds them, so more copies are in flight
-  static constexpr int kStages = HD <= 128 ? 4 : 2;
+  static constexpr int kStages = kPD <= 128 ? 4 : 2;
   static constexpr int kNS = kTileRows / kWG;   // score columns a warpgroup
-  static constexpr int kND = HD / kWG;          // output dims a warpgroup
+  static constexpr int kND = kPD / kWG;         // output dims a warpgroup
   static constexpr uint32_t kPS = kTileRows * 128;   // a 64 x 64 P or dS
   // dK/dV: K, V, the stages of Q and dO, P^T, dS^T, then the stages of
   // lse and Delta; the float32 dK, dV partials later reuse the front
   static constexpr uint32_t kKvBytes = (2 + 2 * kStages) * kTile + 2 * kPS;
-  static constexpr uint32_t kPartPitch = HD + 8;   // floats a partial row
+  static constexpr uint32_t kPartPitch = kPD + 8;  // floats a partial row
   static_assert(2u * kTileRows * kPartPitch * 4 <= kKvBytes, "partials");
   // dQ: Q, dO, the stages of K and V, dS
   static constexpr uint32_t kQBytes = (2 + 2 * kStages) * kTile + kPS;
@@ -271,13 +282,23 @@ struct Consts {
   }
 };
 
-// Delta_i = sum_d dO_i,d O_i,d per (batch, head, query) row: HD / 8 lanes
-// a row (at most 32), each summing 16-byte chunks, then a shuffle tree
-// inside the row's lanes; 32 / (HD / 8) rows a warp below hd 256.
+// Lanes of delta_kernel a row: HD / 8 16-byte chunks rounded up to a power
+// of two (the shuffle tree's width; 16 at hd 112, two lanes idle), at most
+// 32.
+template <int HD>
+__host__ __device__ constexpr int delta_lanes() {
+  int n = 1;
+  while (n < HD / 8 && n < 32) n *= 2;
+  return n;
+}
+
+// Delta_i = sum_d dO_i,d O_i,d per (batch, head, query) row:
+// delta_lanes<HD>() lanes a row, each summing 16-byte chunks, then a
+// shuffle tree inside the row's lanes; 32 / delta_lanes rows a warp.
 template <int HD>
 __global__ void __launch_bounds__(256) delta_kernel(BwdParams p) {
   constexpr int chunks = HD / 8;
-  constexpr int per_row = chunks < 32 ? chunks : 32;
+  constexpr int per_row = delta_lanes<HD>();
   const int lane = threadIdx.x & 31;
   const int64_t row =
       ((int64_t)blockIdx.x * 8 + (threadIdx.x >> 5)) * (32 / per_row) +
@@ -367,7 +388,7 @@ __global__ void __launch_bounds__(Cfg<HD>::kThreads, 1)
         load_tile<HD>(sK, &p.tk, &bars[kKvFull], key0, kvh, b);
         load_tile<HD>(sV, &p.tv, &bars[kKvFull], key0, kvh, b);
       }
-      const uint32_t bytes = 2u * 2u * HD * rows;
+      const uint32_t bytes = 2u * 2u * C::kPD * rows;   // TMA counts the fill
       for (int t = 0; t < n_tiles; ++t) {
         const int s = t % C::kStages;
         if (t >= C::kStages)
@@ -544,7 +565,8 @@ __global__ void __launch_bounds__(Cfg<HD>::kThreads, 1)
     }
     cluster_sync();
     // this rank's slice of the cluster's sum, heads in ascending order;
-    // four chunks a round, so that their remote loads overlap
+    // four chunks a round, so that their remote loads overlap; the HD
+    // true columns of each row only
     constexpr int kChunks = HD / 4;   // float4 chunks a row
     constexpr int kTotal = 2 * kTileRows * kChunks;
     const uint32_t base = smem_u32(part);
@@ -641,7 +663,7 @@ __global__ void __launch_bounds__(Cfg<HD>::kThreads, 1)
   if (threadIdx.x >= C::kCons) {
     // ---- producer: one thread issues every copy ----
     if (threadIdx.x != C::kCons || t_lo >= t_hi) return;
-    mbar_arrive_tx(&bars[kRowsFull], 2u * 2u * HD * rows);
+    mbar_arrive_tx(&bars[kRowsFull], 2u * 2u * C::kPD * rows);
     load_tile<HD>(sQ, &p.tq_q, &bars[kRowsFull], q0, h0, b);
     load_tile<HD>(sdO, &p.tdo_q, &bars[kRowsFull], q0, h0, b);
     for (int t = t_lo; t < t_hi; ++t) {
@@ -772,9 +794,10 @@ __global__ void __launch_bounds__(Cfg<HD>::kThreads, 1)
              wg * C::kND;
 #pragma unroll
     for (int j = 0; j < C::kND / 8; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(row + 8 * j + 2 * tq) =
-          __floats2bfloat162_rn(acc[4 * j + 2 * half],
-                                acc[4 * j + 2 * half + 1]);
+      if (wg * C::kND + 8 * j < HD)   // not the padding columns
+        *reinterpret_cast<__nv_bfloat162*>(row + 8 * j + 2 * tq) =
+            __floats2bfloat162_rn(acc[4 * j + 2 * half],
+                                  acc[4 * j + 2 * half + 1]);
   }
 }
 
@@ -863,7 +886,7 @@ int launch_bwd(BwdParams& p, const void* q, const void* k, const void* v,
   if (int e = allow_smem(dq_kernel<HD>, C::kSmemQ, &q_configured)) return e;
 
   const int64_t rows = (int64_t)p.batch * p.heads * p.sq;
-  const int64_t rows_a_block = 8 * (32 / (HD / 8 < 32 ? HD / 8 : 32));
+  const int64_t rows_a_block = 8 * (32 / delta_lanes<HD>());
   delta_kernel<HD><<<(unsigned)((rows + rows_a_block - 1) / rows_a_block),
                      256, 0, st>>>(p);
   cudaError_t e = cudaGetLastError();
@@ -1274,6 +1297,7 @@ extern "C" int flash_attention_bwd(
     case 16: return launch_bwd<16>(p, q, k, v, strides, st);
     case 32: return launch_bwd<32>(p, q, k, v, strides, st);
     case 64: return launch_bwd<64>(p, q, k, v, strides, st);
+    case 112: return launch_bwd<112>(p, q, k, v, strides, st);
     case 128: return launch_bwd<128>(p, q, k, v, strides, st);
     case 256: return launch_bwd<256>(p, q, k, v, strides, st);
     default: return (int)cudaErrorInvalidValue;
@@ -1334,6 +1358,7 @@ extern "C" int flash_attention_bwd_f32(
     case 16: return launch_bwd_f32<16>(p, st);
     case 32: return launch_bwd_f32<32>(p, st);
     case 64: return launch_bwd_f32<64>(p, st);
+    case 112: return launch_bwd_f32<112>(p, st);
     case 128: return launch_bwd_f32<128>(p, st);
     case 256: return launch_bwd_f32<256>(p, st);
     default: return (int)cudaErrorInvalidValue;

@@ -8,8 +8,9 @@
 // Shared-memory operand layouts (PTX ISA, "Matrix Descriptor Format";
 // CUTLASS's canonical GMMA layouts). A tile is stored as rows of one
 // swizzle span: 128 bytes (64 bf16) for head dims >= 64, else 2 * hd bytes
-// (64-byte or 32-byte swizzle), a head dim wider than 64 as hd / 64 such
-// tiles one after another ("atoms"). TMA writes this layout with
+// (64-byte or 32-byte swizzle), a head dim wider than 64 as ceil(hd / 64)
+// such tiles one after another ("atoms"; past hd the last one holds TMA's
+// zero fill, at hd 112). TMA writes this layout with
 // CU_TENSOR_MAP_SWIZZLE_{128,64,32}B; a 16-byte chunk c of row r lands at
 // chunk c ^ ((r / (128 / span)) % (span / 16)), which is the address-bit
 // swizzle wgmma reads back, as long as every tile starts on a 1,024-byte

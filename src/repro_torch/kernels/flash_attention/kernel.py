@@ -17,8 +17,9 @@ import torch
 from .. import _cuda
 from .ref import key_range
 
-#: head dims the kernel is compiled for (those of the repo's configs/tests)
-HEAD_DIMS = (16, 32, 64, 128, 256)
+#: head dims the kernel is compiled for (those of the repo's configs/tests;
+#: 112 is zamba2-7b's shared attention block)
+HEAD_DIMS = (16, 32, 64, 112, 128, 256)
 #: the routes, by the id the C entry point takes
 ROUTES = ("simt", "mma", "decode")
 #: (head, query) rows of a KV group up to which a call is a decode

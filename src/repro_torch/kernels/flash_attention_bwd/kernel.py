@@ -5,7 +5,9 @@ in thread-block clusters and dQ per row tile, on the tensor cores for bf16
 inputs; for float32 inputs the same three steps on the CUDA cores
 (``flash_attention_bwd_f32``: dK/dV per (batch, KV head, 32-key tile), its
 G heads summed in a loop, dQ per (batch, head, 32-query tile)), with no
-plan and no tile table.
+plan and no tile table. A head dim above 64 that is not a multiple of 64
+(112) runs the next multiple's shape in shared memory (the source's
+``Cfg::kPD``): two consumer warpgroups at 112 as at 128.
 
 :func:`plan_bwd` settles every launch from the shapes alone, the tile walk
 included: for each launch position, the key tile of a dK/dV block with the
@@ -77,7 +79,7 @@ class BwdPlan:
     causal: bool
     window: int | None
     q_offset: int
-    consumers: int            # consumer warpgroups a block (2 at hd >= 128)
+    consumers: int            # consumer warpgroups a block (2 at hd > 64)
     cluster: int
     heads_per_block: int
     kv_heads_per_tile: int
@@ -174,7 +176,7 @@ def plan_bwd(B: int, H: int, KV: int, Sq: int, Skv: int, kend: int, hd: int,
     q_tiles.sort(key=lambda e: (e[1] - e[2], -e[0]))
     return BwdPlan(B=B, H=H, KV=KV, Sq=Sq, Skv=Skv, kend=kend, hd=hd,
                    causal=causal, window=window, q_offset=q_offset,
-                   consumers=2 if hd >= 128 else 1, cluster=cluster,
+                   consumers=2 if hd > 64 else 1, cluster=cluster,
                    heads_per_block=per_block, kv_heads_per_tile=kv_hpt,
                    kv_block_q=kv_bq, q_heads_per_tile=q_hpt, q_block_q=q_bq,
                    kv_tiles=tuple(kv_tiles), q_tiles=tuple(q_tiles))

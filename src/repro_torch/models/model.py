@@ -10,11 +10,12 @@ step.
   params_from_jax(cfg, tree)                   -> params
 
 ``batch`` is a dict of ``tokens`` and ``labels``, (B, S) integers.
-Decoder-only models with ``attn``, ``attn_local`` and ``mamba1`` blocks
-and dense or MoE feed-forwards, each served and trained on the card
-through its hand-written kernels, in bf16 or float32. The encoder-decoder
-and VLM front ends and the other block kinds raise ``NotImplementedError``
-(ROADMAP queue 1). On one card there is no activation sharding, so the
+Decoder-only models with ``attn``, ``attn_local``, ``shared_attn``,
+``mamba1`` and ``mamba2`` blocks and dense or MoE feed-forwards, each
+served and trained on the card through its hand-written kernels (Mamba-2's
+SSD form has none in the reference and stays plain PyTorch), in bf16 or
+float32. The encoder-decoder
+and VLM front ends raise ``NotImplementedError`` (ROADMAP queue 1). On one card there is no activation sharding, so the
 reference's ``shardctx.anchor_batch`` has no counterpart.
 """
 
@@ -198,10 +199,12 @@ def params_from_jax(cfg: ArchConfig, tree: dict, *,
     parameters. The stacked ``groups`` leaves (leading ``n_groups`` axis)
     are split per group; bf16 leaves (``ml_dtypes`` arrays, which
     ``torch.from_numpy`` refuses) are carried bit for bit through
-    ``uint16``."""
+    ``uint16``. ``shared_attn`` (zamba2's one shared attention block) is
+    a plain block with no group axis."""
     check_config(cfg)
     dev = resolve_device(device)
-    unknown = set(tree) - {"embed", "groups", "rest", "final_norm", "lm_head"}
+    unknown = set(tree) - {"embed", "groups", "rest", "final_norm", "lm_head",
+                           "shared_attn"}
     if unknown:
         raise NotImplementedError(f"parameters {sorted(unknown)} are not "
                                   "ported to repro_torch yet (ROADMAP queue 1)")
@@ -211,8 +214,9 @@ def params_from_jax(cfg: ArchConfig, tree: dict, *,
                            tree["groups"]) for g in range(cfg.n_groups)],
            "rest": [_map(conv, b) for b in tree["rest"]],
            "final_norm": conv(tree["final_norm"])}
-    if "lm_head" in tree:
-        out["lm_head"] = conv(tree["lm_head"])
+    for key in ("lm_head", "shared_attn"):
+        if key in tree:
+            out[key] = _map(conv, tree[key])
     return out
 
 
@@ -223,7 +227,8 @@ def params_from_jax(cfg: ArchConfig, tree: dict, *,
 def count_params_analytic(cfg: ArchConfig, active_only: bool = False) -> int:
     """Parameters of the blocks the port serves (the reference's count for
     those configs); ``active_only`` counts a MoE layer's top-k experts
-    instead of all of them."""
+    instead of all of them. The shared attention block counts once,
+    however many groups apply it."""
     check_config(cfg)
     D, F, V = cfg.d_model, cfg.d_ff, cfg.vocab
     hd = cfg.resolved_head_dim()
@@ -238,18 +243,26 @@ def count_params_analytic(cfg: ArchConfig, active_only: bool = False) -> int:
             attn += 3 * D * F
     else:
         attn += 3 * D * F
-    total = 0
-    for kind in list(cfg.layer_pattern) * cfg.n_groups + list(
-            cfg.remainder_pattern):
-        if kind == "mamba1":
-            ssm = cfg.ssm
-            di = ssm.d_inner(D)
-            dtr = ssm.resolved_dt_rank(D)
-            N = ssm.state_dim
-            total += (D * 2 * di + di * ssm.conv_kernel + di
-                      + di * (dtr + 2 * N) + dtr * di + di + di * N + di
-                      + di * D + D)
-        else:
+    ssm, per_kind = cfg.ssm, {}
+    if ssm is not None:
+        di = ssm.d_inner(D)
+        N = ssm.state_dim
+        dtr = ssm.resolved_dt_rank(D)
+        nh = di // ssm.head_dim
+        conv_dim = di + 2 * N
+        per_kind = {
+            "mamba1": (D * 2 * di + di * ssm.conv_kernel + di
+                       + di * (dtr + 2 * N) + dtr * di + di + di * N + di
+                       + di * D + D),
+            "mamba2": (D * (2 * di + 2 * N + nh) + conv_dim * ssm.conv_kernel
+                       + conv_dim + 3 * nh + di + di * D + D)}
+    full = list(cfg.layer_pattern) * cfg.n_groups + list(
+        cfg.remainder_pattern)
+    total = attn if "shared_attn" in full else 0     # one block, counted once
+    for kind in full:
+        if kind in per_kind:
+            total += per_kind[kind]
+        elif kind != "shared_attn":
             total += attn
     total += V * D                       # embeddings
     if not cfg.tie_embeddings:

@@ -1,10 +1,15 @@
 """Decoder-only LM assembled from an ArchConfig.
 
 The layer stack is ``n_groups`` repeats of the config's group pattern (e.g.
-gemma3 = local x5, global) plus a remainder, run as a Python loop. The
-parameters keep the reference's layout with the stacked group axis
-unstacked: ``params["groups"][g][f"b{i}"]`` is block ``i`` of group ``g``,
-``params["rest"][i]`` block ``i`` of the remainder; the caches mirror it.
+gemma3 = local x5, global; zamba2 = mamba2 x6, shared_attn) plus a
+remainder, run as a Python loop. The parameters keep the reference's
+layout with the stacked group axis unstacked: ``params["groups"][g]
+[f"b{i}"]`` is block ``i`` of group ``g``, ``params["rest"][i]`` block
+``i`` of the remainder. zamba2's ``shared_attn`` is one attention block,
+``params["shared_attn"]``, that every group applies; the group dicts hold
+no slot for it (the reference drops its placeholder). The caches mirror
+the groups, and there each application of the shared block keeps its own
+KV cache at ``caches["groups"][g][f"b{i}"]``.
 
 Three modes share the block code:
   * train: causal forward, no caches, differentiable: attention goes
@@ -20,13 +25,13 @@ The caches are updated in place (the reference returns new ones): an
 attention cache is allocated once at the serving length and each step
 writes its token's K/V at slot ``pos``.
 
-Blocks ``attn``, ``attn_local`` and ``mamba1`` are ported, and an
-attention block's feed-forward is the MoE one (:mod:`.moe`, with the dense
-residual MLP beside it where the config has one) when ``cfg.moe`` is set;
-``mamba2`` and ``shared_attn`` raise ``NotImplementedError`` (ROADMAP
-queue 1). In train mode ``mamba1`` runs its scan through
-:class:`~repro_torch.kernels.selective_scan.SelectiveScanFn` (the CUDA
-forward and backward kernels on the card).
+Blocks ``attn``, ``attn_local``, ``shared_attn``, ``mamba1`` and
+``mamba2`` are ported, and an attention block's feed-forward is the MoE
+one (:mod:`.moe`, with the dense residual MLP beside it where the config
+has one) when ``cfg.moe`` is set. In train mode ``mamba1`` runs its scan
+through :class:`~repro_torch.kernels.selective_scan.SelectiveScanFn` (the
+CUDA forward and backward kernels on the card); ``mamba2`` is plain
+PyTorch under autograd (:func:`.mamba.mamba2_forward`).
 """
 
 from __future__ import annotations
@@ -37,12 +42,14 @@ from torch.utils.checkpoint import checkpoint
 from ..configs.base import ArchConfig
 from .attention import attention_blockwise, attention_decode, attention_train
 from .common import ACTS, normal_init, rms_norm, rope
-from .mamba import init_mamba1, mamba1_decode, mamba1_forward
+from .mamba import (init_mamba1, init_mamba2, mamba1_decode, mamba1_forward,
+                    mamba2_decode, mamba2_forward)
 from .mlp import gated_mlp, init_gated_mlp
 from .moe import init_moe, moe_ffn
 
-ATTN_KINDS = ("attn", "attn_local")
-KINDS = ATTN_KINDS + ("mamba1",)
+ATTN_KINDS = ("attn", "attn_local", "shared_attn")
+SSM_KINDS = ("mamba1", "mamba2")
+KINDS = ATTN_KINDS + SSM_KINDS
 MODES = ("train", "prefill", "decode")
 
 
@@ -96,10 +103,11 @@ def _init_attn_block(gen: torch.Generator, cfg: ArchConfig) -> dict:
 def init_block(gen: torch.Generator, cfg: ArchConfig, kind: str) -> dict:
     if kind in ATTN_KINDS:
         return _init_attn_block(gen, cfg)
-    if kind == "mamba1":
+    if kind in SSM_KINDS:
+        init = init_mamba1 if kind == "mamba1" else init_mamba2
         return {"ln": torch.zeros((cfg.d_model,), dtype=torch.float32,
                                   device=gen.device),
-                "mixer": init_mamba1(gen, cfg.d_model, cfg.ssm)}
+                "mixer": init(gen, cfg.d_model, cfg.ssm)}
     raise _not_ported(f"block kind {kind!r}")
 
 
@@ -107,21 +115,29 @@ def init_block_cache(cfg: ArchConfig, kind: str, batch: int, max_len: int, *,
                      device: torch.device,
                      dtype: torch.dtype = torch.bfloat16) -> dict:
     """Zeroed cache of one block: K/V (batch, max_len, KV, hd) in the
-    activation dtype for attention; for mamba1 the conv state in bf16 (as
-    the reference stores it, even in a float32 run) and the float32 scan
-    state."""
+    activation dtype for attention; for mamba1 and mamba2 the conv states
+    in bf16 (as the reference stores them, even in a float32 run) and the
+    float32 scan state (mamba2: conv states ``{x, B, C}``, state (batch,
+    nh, P, N))."""
     if kind in ATTN_KINDS:
         shape = (batch, max_len, cfg.n_kv_heads, cfg.resolved_head_dim())
         return {"k": torch.zeros(shape, dtype=dtype, device=device),
                 "v": torch.zeros(shape, dtype=dtype, device=device)}
+    if kind not in SSM_KINDS:
+        raise _not_ported(f"block kind {kind!r}")
+    ssm = cfg.ssm
+    di = ssm.d_inner(cfg.d_model)
+    N = ssm.state_dim
+    conv = lambda n: torch.zeros((batch, ssm.conv_kernel - 1, n),  # noqa: E731
+                                 dtype=torch.bfloat16, device=device)
     if kind == "mamba1":
-        ssm = cfg.ssm
-        di = ssm.d_inner(cfg.d_model)
-        return {"conv": torch.zeros((batch, ssm.conv_kernel - 1, di),
-                                    dtype=torch.bfloat16, device=device),
-                "ssm": torch.zeros((batch, di, ssm.state_dim),
-                                   dtype=torch.float32, device=device)}
-    raise _not_ported(f"block kind {kind!r}")
+        return {"conv": conv(di),
+                "ssm": torch.zeros((batch, di, N), dtype=torch.float32,
+                                   device=device)}
+    P = ssm.head_dim
+    return {"conv": {"x": conv(di), "B": conv(N), "C": conv(N)},
+            "ssm": torch.zeros((batch, di // P, P, N), dtype=torch.float32,
+                               device=device)}
 
 
 # --------------------------------------------------------------------------
@@ -138,6 +154,8 @@ def apply_block(cfg: ArchConfig, kind: str, p: dict, x: torch.Tensor, *,
     if kind in ATTN_KINDS:
         return _apply_attn(cfg, kind, p, x, mode=mode, cache=cache, pos=pos,
                            backend=backend)
+    if kind == "mamba2":
+        return _apply_mamba2(cfg, p, x, mode=mode, cache=cache)
     if kind != "mamba1":
         raise _not_ported(f"block kind {kind!r}")
     h = rms_norm(x, p["ln"])
@@ -153,6 +171,22 @@ def apply_block(cfg: ArchConfig, kind: str, p: dict, x: torch.Tensor, *,
             p["mixer"], h, (cache["conv"], cache["ssm"]), cfg.ssm,
             backend=backend)
     cache["conv"] = conv.to(torch.bfloat16)
+    cache["ssm"] = ssm_state
+    return x + y, cache
+
+
+def _apply_mamba2(cfg: ArchConfig, p: dict, x: torch.Tensor, *, mode: str,
+                  cache: dict | None) -> tuple[torch.Tensor, dict | None]:
+    h = rms_norm(x, p["ln"])
+    if mode == "decode":
+        y, (conv, ssm_state) = mamba2_decode(
+            p["mixer"], h, (cache["conv"], cache["ssm"]), cfg.ssm)
+    else:
+        y, (conv, ssm_state) = mamba2_forward(p["mixer"], h, cfg.ssm,
+                                              chunk=cfg.scan_chunk)
+        if mode == "train":
+            return x + y, None
+    cache["conv"] = {k: c.to(torch.bfloat16) for k, c in conv.items()}
     cache["ssm"] = ssm_state
     return x + y, cache
 
@@ -215,11 +249,21 @@ def _apply_attn(cfg: ArchConfig, kind: str, p: dict, x: torch.Tensor, *,
 # full stack
 # --------------------------------------------------------------------------
 
+def _group_block(tree: dict, g: int, i: int, kind: str) -> dict:
+    """Block ``i`` of group ``g`` in a params or caches tree: the one
+    shared attention block where the parameters hold it (every application
+    reads it), else the group's own slot (caches keep one per
+    application)."""
+    if kind == "shared_attn" and "shared_attn" in tree:
+        return tree["shared_attn"]
+    return tree["groups"][g][f"b{i}"]
+
+
 def _layers(cfg: ArchConfig, tree: dict):
     """(kind, params-or-cache of that block) for every layer, in order."""
     for g in range(cfg.n_groups):
         for i, kind in enumerate(cfg.layer_pattern):
-            yield kind, tree["groups"][g][f"b{i}"]
+            yield kind, _group_block(tree, g, i, kind)
     for i, kind in enumerate(cfg.remainder_pattern):
         yield kind, tree["rest"][i]
 
@@ -227,7 +271,8 @@ def _layers(cfg: ArchConfig, tree: dict):
 def init_lm_params(cfg: ArchConfig, gen: torch.Generator) -> dict:
     check_config(cfg)
     groups = [{f"b{i}": init_block(gen, cfg, k)
-               for i, k in enumerate(cfg.layer_pattern)}
+               for i, k in enumerate(cfg.layer_pattern)
+               if k != "shared_attn"}
               for _ in range(cfg.n_groups)]
     params = {
         "embed": normal_init(gen, (cfg.vocab, cfg.d_model)),
@@ -236,6 +281,8 @@ def init_lm_params(cfg: ArchConfig, gen: torch.Generator) -> dict:
         "final_norm": torch.zeros((cfg.d_model,), dtype=torch.float32,
                                   device=gen.device),
     }
+    if "shared_attn" in cfg.layer_pattern:
+        params["shared_attn"] = init_block(gen, cfg, "shared_attn")
     if not cfg.tie_embeddings:
         params["lm_head"] = normal_init(gen, (cfg.d_model, cfg.vocab))
     return params
@@ -255,8 +302,9 @@ def _train_stack(cfg: ArchConfig, params: dict, x: torch.Tensor, *,
                                    backend=backend)
         return h
 
-    segments = [[(kind, g[f"b{i}"]) for i, kind in enumerate(cfg.layer_pattern)]
-                for g in params["groups"]]
+    segments = [[(kind, _group_block(params, g, i, kind))
+                 for i, kind in enumerate(cfg.layer_pattern)]
+                for g in range(cfg.n_groups)]
     segments += [[(kind, p)] for kind, p in zip(cfg.remainder_pattern,
                                                 params["rest"])]
     for blocks in segments:

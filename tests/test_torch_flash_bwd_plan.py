@@ -275,6 +275,20 @@ def test_training_plans():
     assert [kts[i] for i in (0, 63, 64)] == [0, 0, 1]
 
 
+def test_zamba2_shared_layer_plan():
+    """zamba2-7b's shared attention block (B 4, H 32 on KV 32, S 1,024,
+    hd 112): G 1, so one-block clusters, 64-query row tiles of one head,
+    4 x 32 x 16 = 2,048 dK/dV and dQ blocks; hd 112 runs the hd-128 shape
+    (two consumer warpgroups)."""
+    plan = _plan(4, 32, 32, 1024, 1024, 112, None, 0, None)
+    assert (plan.cluster, plan.heads_per_block, plan.consumers) == (1, 1, 2)
+    assert (plan.kv_heads_per_tile, plan.kv_block_q) == (1, 64)
+    assert (plan.q_heads_per_tile, plan.q_block_q) == (1, 64)
+    assert plan.dkdv_blocks == 2048 and plan.dq_blocks == 2048
+    assert [kt for kt, _, _ in plan.kv_tiles] == list(range(16))
+    assert _plan(4, 32, 32, 1024, 1024, 64, None, 0, None).consumers == 1
+
+
 def test_wide_groups_pack_heads_into_blocks():
     """G 64 (3 queries): 8-block clusters of 8 heads each, packed into one
     24-row tile; G 12: 6-block clusters of 2 heads; G 7: 7-block clusters."""

@@ -64,6 +64,8 @@ ATTN = [
     (4, 4, 1, 1024, 1024, 256, True, 512, None),    # gemma3-1b local
     (1, 16, 2, 40, 40, 128, True, None, 30.0),      # G 8, softcap
     (1, 64, 1, 3, 3, 16, True, None, None),         # G 64 > rows per block
+    (4, 32, 32, 1024, 1024, 112, True, None, None),  # zamba2-7b shared block
+    (2, 4, 4, 96, 96, 112, True, 32, 20.0),         # hd 112, window, softcap
 ]
 #: prefill edges: Sq not a multiple of the 64-row tile, every head dim,
 #: q_offset > 0 with Sq > 1 (a chunk against a longer cache), softcap with
@@ -80,6 +82,8 @@ PREFILL = [
     (2, 4, 1, 200, 200, 128, 64, 30.0, 0, None),
     (1, 8, 1, 96, 96, 256, 40, 50.0, 0, None),
     (1, 2, 1, 1024, 1024, 256, 512, 50.0, 0, None),
+    (1, 4, 1, 70, 200, 112, None, None, 100, 170),
+    (2, 4, 2, 130, 130, 112, 48, 30.0, 0, None),
 ]
 #: decode beyond the serving shape: G * Sq <= 16 rows, every head dim
 DECODE_IDS = "G,Sq,hd,causal,window,pos"
@@ -90,6 +94,8 @@ DECODE = [
     (2, 3, 64, False, None, 90),
     (16, 1, 32, True, 20, 40),
     (8, 2, 16, True, None, 1500),
+    (1, 1, 112, True, None, 1039),    # zamba2-7b decode
+    (4, 2, 112, True, 40, 300),
 ]
 #: the backward (bf16): the training path's shapes (gemma3-1b's global and
 #: local layers, gemma2-27b's heads with a softcap), every head dim, ragged
@@ -109,6 +115,9 @@ BWD = [
     (4, 4, 1, 1024, 1024, 256, None, None, 0, None),
     (4, 4, 1, 1024, 1024, 256, 512, None, 0, None),
     (2, 32, 16, 512, 512, 128, None, 50.0, 0, None),
+    (4, 32, 32, 1024, 1024, 112, None, None, 0, None),   # zamba2-7b
+    (2, 4, 2, 70, 70, 112, 32, 30.0, 0, None),
+    (1, 4, 1, 48, 300, 112, None, None, 200, 248),
 ]
 SCAN = [(2, 64, 32, 8), (1, 128, 64, 16), (2, 96, 48, 4), (1, 256, 128, 16),
         (4, 1024, 8192, 16),                         # falcon-mamba-7b prefill
@@ -534,7 +543,7 @@ def test_cuda_attention_bwd_matches_plain(B, H, KV, Sq, Skv, hd, window,
 
 @pytest.mark.gpu
 @pytest.mark.parametrize(BWD_IDS, [BWD[9], BWD[10], BWD[11], BWD[6],
-                                   BWD[8]])
+                                   BWD[8], BWD[12], BWD[14]])
 def test_cuda_attention_bwd_is_deterministic(B, H, KV, Sq, Skv, hd, window,
                                              softcap, q_offset, kv_len):
     """Two calls on the same inputs give bit-equal dq, dk and dv: no float
@@ -623,6 +632,8 @@ BWD_F32 = [
     (1, 16, 1, 3, 3, 16, None, None, 0, None),
     (4, 4, 1, 1024, 1024, 256, None, None, 0, None),
     (4, 16, 8, 1024, 1024, 64, None, None, 0, None),
+    (4, 32, 32, 1024, 1024, 112, None, None, 0, None),   # zamba2-7b
+    (1, 8, 2, 45, 100, 112, 16, 30.0, 40, 85),
 ]
 
 

@@ -277,7 +277,7 @@ def test_moe_configs_pass_check_config(arch):
     cfg = get_config(arch)
     check_config(cfg)
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-        check_config(dataclasses.replace(cfg, layer_pattern=("mamba2",)))
+        check_config(dataclasses.replace(cfg, enc_dec=True))
     p = M.init_params(cfg.reduced(), seed=0, device="cpu")
     block = p["groups"][0]["b0"]
     assert "mlp" not in block and set(block["moe"]) == (

@@ -1,5 +1,6 @@
 """``chip_smoke.py``'s attribution of device time to the MoE feed-forward
-and its count of routing flips, on the CPU (no JAX).
+and to Mamba-2's chunk work, and its count of routing flips, on the CPU
+(no JAX).
 
 The profiler trace of a training step names kernels, not modules:
 ``scoped_device_us`` gives a kernel to the ``moe`` family when the
@@ -19,6 +20,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from repro_torch.configs import get_config
 from repro_torch.models import model as M
+from repro_torch.models.mamba import SSD_SCOPE
 from repro_torch.train.train_step import TrainConfig, grad_fn
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -32,11 +34,11 @@ def _chip_smoke():
     return mod
 
 
-def _step_events(remat: bool):
-    """A reduced granite-moe-1b-a400m first step under the CPU profiler;
-    every operator not called by another operator gets one 1 µs "kernel"
-    of its own name."""
-    cfg = get_config("granite-moe-1b-a400m").reduced()
+def _step_events(remat: bool, arch: str = "granite-moe-1b-a400m"):
+    """A reduced config's first step under the CPU profiler; every
+    operator not called by another operator gets one 1 µs "kernel" of its
+    own name."""
+    cfg = get_config(arch).reduced()
     params = M.init_params(cfg, seed=0, device="cpu")
     gen = torch.Generator().manual_seed(0)
     batch = {k: torch.randint(0, cfg.vocab, (2, 16), generator=gen)
@@ -100,6 +102,45 @@ def test_step_families_split_the_scope():
     assert sum(fam.values()) == sum(us for us, _ in by_name.values())
     # no scope: nothing is the moe family's
     assert smoke.step_families(by_name, {})["moe"] == 0.0
+
+
+@pytest.mark.parametrize("remat", [True, False])
+def test_ssd_scope_takes_the_chunk_work_and_its_backward(remat):
+    """zamba2-7b's Mamba-2 blocks: the decay's cumsum and exponentials and
+    the chunk products, forward, recompute and backward, are the ``ssd``
+    range's; the projections before it, the conv and the norm after it,
+    and the attention block's operators are not."""
+    smoke = _chip_smoke()
+    assert smoke.SSD_SCOPE == SSD_SCOPE
+    events = _step_events(remat, "zamba2-7b")
+    scoped = smoke.scoped_device_us(events, smoke.SSD_SCOPE)
+    # the cumsum's backward is a flip and a cumsum
+    for op in ("aten::cumsum", "aten::exp", "aten::where", "aten::matmul",
+               "aten::bmm", "aten::einsum", "aten::flip"):
+        assert scoped.get(op), (op, sorted(scoped))
+    for op in ("aten::softplus", "aten::softplus_backward", "aten::sigmoid",
+               "aten::rsqrt", "aten::logsumexp", "aten::cos",
+               smoke.SSD_SCOPE, "train_segment"):
+        assert op not in scoped, op
+
+
+def test_step_families_take_the_ssd_scope_before_gemm():
+    """The chunk range's share of every kernel not of a hand-written
+    kernel's family goes to ``ssd``, its GEMMs included; the rest of a
+    GEMM stays ``gemm``; the hand-written kernels keep theirs."""
+    smoke = _chip_smoke()
+    by_name = {"sm80_xmma_gemm_f32f32": (10.0, 4),
+               "void elementwise_kernel": (6.0, 3),
+               "void flash_kernel_mma<112>": (2.0, 1),
+               "Memcpy DtoD": (0.5, 1)}
+    ssd = {"sm80_xmma_gemm_f32f32": 7.0, "void elementwise_kernel": 5.0,
+           "void flash_kernel_mma<112>": 2.0}
+    fam = smoke.step_families(by_name, {}, ssd)
+    assert fam["ssd"] == 12.0 and fam["gemm"] == 3.0
+    assert fam["other"] == 1.0 and fam["flash_attention"] == 2.0
+    assert fam["moe"] == 0.0 and fam["copy"] == 0.5
+    assert sum(fam.values()) == sum(us for us, _ in by_name.values())
+    assert smoke.step_families(by_name, {})["ssd"] == 0.0
 
 
 def test_flips_by_router_counts_each_layer_at_its_first_routing():

@@ -5,14 +5,23 @@ The reduced forms of every config whose blocks the port serves
 (``gemma3-1b`` local/global windows, ``falcon-mamba-7b`` Mamba-1,
 ``granite-3-8b`` GQA, ``qwen2-72b`` QKV bias, ``gemma2-27b`` both
 softcaps, ``granite-moe-1b-a400m`` and ``arctic-480b`` the MoE
-feed-forward, the latter with its dense residual) run the reference's weights, carried by ``params_from_jax``, with
+feed-forward, the latter with its dense residual, ``zamba2-7b`` Mamba-2
+and the shared attention block) run the reference's weights, carried by ``params_from_jax``, with
 the norms and biases moved off zero so that a dropped term shows. Logits
 are held at every step, teacher-forced along the reference's greedy tokens:
 in float32 at 2e-5 (atol and rtol; observed ~4e-7), which catches mask,
 RoPE and GQA errors that bf16 noise would hide, and in bf16, as served, at
 2e-2 (observed up to one bf16 ulp, 7.8e-3). The port's
 ``ServeEngine.generate`` tokens are held to the reference's by the margin
-rule of ``greedy_agreement``.
+rule of ``greedy_agreement``, and its logits up to each row's first token
+that differs from the reference's (a bf16 near-tie; later steps see other
+inputs). Both packages cache the Mamba blocks' conv states in bf16 even
+in a float32 run: in the teacher-forced float32 loop the port's are held
+within one bf16 ulp of the reference's and then set to them
+(``_follow_conv_caches``), and the engine run, which keeps its own, is
+held at ``ENGINE_TOL_F32`` where that rounding moves its float32 logits
+past 2e-5 (zamba2-7b). The reference's own engine pads Mamba-2's SSM
+state as if it were a K/V cache; ``_JaxEngine`` pads the K/V caches only.
 """
 
 import dataclasses
@@ -46,8 +55,13 @@ from repro_torch.serve.engine import (GridRouter, Request, ServeEngine,
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 B, S, NEW = 2, 40, 8          # prompts longer than the reduced 32-key window
+#: float32 logits of the port's engine run, which follows its own bf16
+#: conv-state rounding (``_follow_conv_caches``), against the reference's
+#: where that rounding moves them past TOL: zamba2-7b's Mamba-2 blocks
+#: (observed 6.0e-5)
+ENGINE_TOL_F32 = {"zamba2-7b": 1e-4}
 ARCHS = ["gemma3-1b", "falcon-mamba-7b", "granite-3-8b", "qwen2-72b",
-         "gemma2-27b", "granite-moe-1b-a400m", "arctic-480b"]
+         "gemma2-27b", "granite-moe-1b-a400m", "arctic-480b", "zamba2-7b"]
 
 
 def test_registry_and_configs_match_reference():
@@ -59,8 +73,61 @@ def test_registry_and_configs_match_reference():
                 got, want = got.reduced(), want.reduced()
             assert dataclasses.asdict(got) == dataclasses.asdict(want)
             assert got.param_count() == want.param_count()
-    with pytest.raises(KeyError, match="zamba2-7b"):
-        get_config("zamba2-7b")
+    with pytest.raises(KeyError, match="whisper-large-v3"):
+        get_config("whisper-large-v3")
+
+
+class _JaxEngine(JaxEngine):
+    """The reference's engine, its cache growth held to the leaves whose
+    sequence axis holds the prompt (the K/V caches). Its own
+    ``_pad_cache_leaf`` also pads Mamba-2's SSM state (B, nh, P, N), whose
+    nh is below ``max_len`` and P at most 64, which breaks its own decode
+    (ROADMAP queue 3); other configs' caches grow as before."""
+
+    def generate(self, tokens, n_new):
+        self.prompt_len = tokens.shape[1]
+        return super().generate(tokens, n_new)
+
+    def _pad_cache_leaf(self, x):
+        if x.ndim >= 4 and x.shape[-3] != self.prompt_len:
+            return x
+        return super()._pad_cache_leaf(x)
+
+
+def _follow_conv_caches(caches, ref, where: str) -> None:
+    """The Mamba blocks' conv states, which both packages cache in bf16
+    even in a float32 run: the port's within one bf16 ulp of the
+    reference's, then set to them. A float32 value within 1e-7 of a bf16
+    rounding midpoint rounds either way, and the ulp it moves a state by
+    (up to 2^-7 relative) would move later float32 logits past 2e-5;
+    following the reference's rounding holds each decode step on the same
+    inputs."""
+    ref = jax.tree.map(np.asarray, ref)
+
+    def walk(got, want, name):
+        if isinstance(want, dict):
+            for k in want:
+                if k == "conv" and isinstance(got[k], dict):
+                    for kk in want[k]:
+                        follow(got[k], kk, want[k][kk], f"{name}/conv/{kk}")
+                elif k == "conv":
+                    follow(got, k, want[k], f"{name}/conv")
+                else:
+                    walk(got[k], want[k], f"{name}/{k}")
+        elif isinstance(want, (list, tuple)):
+            for i, w in enumerate(want):
+                walk(got[i], w, f"{name}/{i}")
+
+    def follow(parent, key, want, name):
+        got = parent[key]
+        assert got.dtype == torch.bfloat16, name
+        np.testing.assert_allclose(got.float().numpy(), want.astype(np.float32),
+                                   rtol=2 ** -7, atol=1e-6, err_msg=f"{where} "
+                                   f"{name}")
+        parent[key] = torch.from_numpy(
+            want.view(np.uint16).copy()).view(torch.bfloat16)
+
+    walk(caches, ref, "caches")
 
 
 def _reference_params(arch: str, dtype: str):
@@ -132,7 +199,7 @@ def test_logits_and_greedy_tokens_match_reference(arch, dtype):
         np.int32)
     tol = dict(atol=TOL[dtype], rtol=TOL[dtype])
 
-    engine = JaxEngine(jcfg, jp, max_len=S + NEW)
+    engine = _JaxEngine(jcfg, jp, max_len=S + NEW)
     want_tokens = engine.generate(tokens, NEW)
     # the reference's logits along its own greedy tokens, and the port's
     # prefill and decode_step teacher-forced along the same tokens
@@ -152,13 +219,26 @@ def test_logits_and_greedy_tokens_match_reference(arch, dtype):
         jl, jc = engine._decode(jp, jc, tok, jnp.int32(S + i))
         logits, caches = M.decode_step(cfg, p, caches,
                                        torch.tensor(np.asarray(tok)), S + i)
+        if dtype == "float32":
+            _follow_conv_caches(caches, jc, f"step {i}")
 
     got_tokens, got_logits = ServeEngine(cfg, p, max_len=S + NEW).generate(
         tokens, NEW, return_logits=True)
     ref_logits = torch.tensor(np.stack(ref_logits, 1))
     assert got_tokens.shape == (B, NEW) and got_logits.shape == (B, NEW,
                                                                  cfg.vocab)
-    np.testing.assert_allclose(got_logits.numpy(), ref_logits.numpy(), **tol)
+    # a row's logits are held up to its first token that differs from the
+    # reference's (a bf16 near-tie): later steps see other inputs. The
+    # engine's caches follow their own bf16 conv-state rounding:
+    # ``ENGINE_TOL_F32`` where that moves float32 logits past TOL
+    if dtype == "float32" and arch in ENGINE_TOL_F32:
+        tol = dict(atol=ENGINE_TOL_F32[arch], rtol=ENGINE_TOL_F32[arch])
+    for r in range(B):
+        differ = np.flatnonzero(got_tokens[r] != want_tokens[r])
+        upto = differ[0] + 1 if differ.size else NEW
+        np.testing.assert_allclose(got_logits[r, :upto].numpy(),
+                                   ref_logits[r, :upto].numpy(), **tol,
+                                   err_msg=f"row {r}")
     held = greedy_agreement(got_tokens, want_tokens, ref_logits, **tol)
     assert held > 0
 
@@ -177,9 +257,7 @@ def test_greedy_agreement_rule():
 
 def test_unported_paths_raise():
     base = get_config("granite-3-8b").reduced()
-    for replace in (dict(layer_pattern=("mamba2",)),
-                    dict(layer_pattern=("attn", "shared_attn")),
-                    dict(enc_dec=True), dict(vision_tokens=8),
+    for replace in (dict(enc_dec=True), dict(vision_tokens=8),
                     dict(act="gelu")):
         with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
             M.init_params(dataclasses.replace(base, **replace), device="cpu")
