@@ -88,8 +88,9 @@ Phases, each raising on failure (the script then exits non-zero):
 9. serving (``SERVE``): ``repro_torch.launch.serve`` at full width for
    gemma3-1b, falcon-mamba-7b, granite-moe-1b-a400m (phase 14 (b); its
    routes that differ between the bf16 kernel and plain runs counted by
-   ``route_flips``) and zamba2-7b at full depth (phase 15 (b)) — seeded
-   weights, the two-pod router, 4
+   ``route_flips``), zamba2-7b at full depth (phase 15 (b)) and
+   internvl2-2b at full depth, text-only as the engine serves it (phase
+   16 (c)) — seeded weights, the two-pod router, 4
    requests of 1,024-token prompts, 16 new tokens — on the kernels, then the
    same model and inputs on the plain route (``backend="plain"``) on the
    card, then both routes again with the weights in float32. Each kernel
@@ -209,7 +210,29 @@ Phases, each raising on failure (the script then exits non-zero):
    within ``TRAIN_TOL`` of the plain route in the loss and every leaf,
    the shared block's included, 8 steps with a falling loss, 4
    ``flash_attention`` and 2 ``flash_attention_bwd`` launches a step, one
-   profiled step by family with ``ssd``.
+   profiled step by family with ``ssd``;
+16. the encoder-decoder and the VLM front end: (a) ``flash_attention`` at
+   their calls (``ENCDEC_ATTN_CASES``), as phase 8's cases: whisper-large-v3's
+   encoder layer non-causal (B 4, H 20 on 20, S 1,500, hd 64) in bf16 and
+   float32, its teacher-forced cross-attention (Sq 187 x Skv 1,500,
+   non-causal), its split decode over the 1,500 cross keys in bf16 and in
+   float32 on the bf16 caches cast (the casts timed beside) and over 17
+   self keys, internvl2-2b's prefill and split decode (H 16 on 8, hd 128)
+   in bf16 and float32; (b) whisper-large-v3 at full width and depth (32 +
+   32 layers, seed 0): 4 requests of ``WHISPER_FRAMES`` frame embeddings
+   from the seed, ``model.prefill`` (the encoder, the cross caches, the
+   BOS step) and ``SERVE_NEW`` greedy tokens (``generate_encdec``), on the
+   kernels and the plain route, in bf16 and with the same weights in
+   float32, held by phase 9's rules (``hold_served``; float32 twice: with
+   float32 caches at ``SERVE_TOL_F32``, and with the reference's bf16
+   caches within twice what they move the plain route's float32 logits),
+   32 + 64 x 17
+   ``flash_attention`` launches and no other kernel, none on the plain
+   route; prefill ms, decode ms a token, tokens/s, peak memory; (c)
+   internvl2-2b's phase 9 run, then one ``model.prefill`` with 256 patch
+   embeddings a request from the seed (``phase_vlm_prefill``), kernels
+   against the plain route by the same rules, its logits moved off the
+   text-only prefill's by more than the bf16 tolerance.
 
 The launch counts of each path are reset just before it runs and read just
 after. The second-to-last line is the kernel summary as JSON; the last line
@@ -321,7 +344,8 @@ TOL = {"bfloat16": 2e-2, "float32": 2e-5}   # tests/test_kernels.py
 SERVE = (("gemma3-1b", "flash_attention"), ("falcon-mamba-7b",
                                             "selective_scan"),
          ("granite-moe-1b-a400m", "flash_attention"),
-         ("zamba2-7b", "flash_attention"))
+         ("zamba2-7b", "flash_attention"),
+         ("internvl2-2b", "flash_attention"))
 SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW = 4, 1024, 16
 #: kernel route against plain route with float32 weights, at full depth
 #: (the bf16 runs are held to twice the bf16 noise measured in the run)
@@ -388,6 +412,44 @@ ZAMBA_BWD_CASES = (
     ("zamba2-7b shared", "float32", 4, 32, 32, 1024, 112, None, None),
 )
 ZAMBA_TRAIN_LAYERS = 18
+#: Phase 16 (a): the flash attention calls of the encoder-decoder and the
+#: VLM (name, dtype, B, H, KV, hd, Sq, Skv, causal, q_offset, kv_len,
+#: cast): whisper-large-v3's encoder layer (non-causal, its 1,500 frames
+#: not a multiple of 64), its teacher-forced cross-attention (187 decoder
+#: positions on 1,500 keys), its decode against the cross caches (all
+#: 1,500 keys: q_offset 1,499, as the model calls it; float32 reads the
+#: bf16 caches cast) and the self caches (17 keys of 187 slots, the last
+#: of 16 new tokens); internvl2-2b's prefill and decode (H 16 on KV 8,
+#: hd 128, a 1,040-slot cache)
+ENCDEC_ATTN_CASES = (
+    ("whisper-large-v3 encoder bf16", "bfloat16", 4, 20, 20, 64, 1500, 1500,
+     False, 0, None, False),
+    ("whisper-large-v3 encoder f32", "float32", 4, 20, 20, 64, 1500, 1500,
+     False, 0, None, False),
+    ("whisper-large-v3 cross train bf16", "bfloat16", 4, 20, 20, 64, 187,
+     1500, False, 0, None, False),
+    ("whisper-large-v3 cross decode bf16", "bfloat16", 4, 20, 20, 64, 1, 1500,
+     True, 1499, 1500, False),
+    ("whisper-large-v3 cross decode f32", "float32", 4, 20, 20, 64, 1, 1500,
+     True, 1499, 1500, True),
+    ("whisper-large-v3 self decode bf16", "bfloat16", 4, 20, 20, 64, 1, 187,
+     True, 16, 17, False),
+    ("internvl2-2b prefill bf16", "bfloat16", 4, 16, 8, 128, 1024, 1024,
+     True, 0, None, False),
+    ("internvl2-2b decode bf16", "bfloat16", 4, 16, 8, 128, 1, 1040, True,
+     1039, 1040, False),
+    ("internvl2-2b prefill f32", "float32", 4, 16, 8, 128, 1024, 1024, True,
+     0, None, False),
+    ("internvl2-2b decode f32", "float32", 4, 16, 8, 128, 1, 1040, True,
+     1039, 1040, False),
+)
+#: Phase 16 (b): whisper-large-v3's requests: 1,500 frame embeddings each
+#: (Whisper's 30 s window after the stubbed conv front end), so 187
+#: decoder positions; the prompt is the BOS token, then SERVE_NEW tokens
+WHISPER, WHISPER_FRAMES = "whisper-large-v3", 1500
+#: Phase 16 (c): internvl2-2b's patch embeddings a request (the stub
+#: InternViT front end's 256), N(0, 0.02^2) as its token embeddings
+VLM_PATCH_SCALE = 0.02
 #: Phase 13: the scan backward's dtypes at falcon-mamba-7b's shape
 #: (MAMBA_BZ x TRAIN_S, MAMBA_DI, MAMBA_N), and the depth falcon-mamba-7b
 #: trains at (64 layers need 112.1 GB of training state; 8 need 17.7 GB)
@@ -1588,11 +1650,18 @@ def _close_or_raise(name: str, got, want, tol: float) -> float:
     return err
 
 
-def phase_model_kernels(dev) -> dict:
-    """Parity and timing of flash_attention and selective_scan at the
-    serving path's shapes (gemma3-1b's ``ATTN_CASES``, then the MoE
-    configs' ``MOE_ATTN_CASES`` and zamba2-7b's ``ZAMBA_ATTN_CASES``);
-    returns per-kernel records (one per case)."""
+def _attn_case(dev, rng, name: str, dtype: str, B: int, H: int, KV: int,
+               hd: int, sq: int, skv: int, causal: bool = True,
+               window=None, cap=None, q_offset: int = 0, kv_len=None,
+               cast: bool = False) -> dict:
+    """One ``flash_attention`` case in the model's layout ((B, S, heads,
+    hd) storage seen as (B, heads, S, hd); the keys an ``skv``-slot cache
+    where ``kv_len`` is set): the wrapper on card tensors against its plain
+    version at ``TOL``, timed beside its bound and
+    ``scaled_dot_product_attention`` (non-causal where the case is). With
+    ``cast``, k and v are a bf16 cache cast to float32, as a float32
+    encoder-decoder decode reads its bf16 caches; the record then carries
+    the casts' device time (``cast_ms``)."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -1601,6 +1670,65 @@ def phase_model_kernels(dev) -> dict:
                                                      flash_attention_kernel,
                                                      flash_attention_ref,
                                                      plan_launch)
+
+    dt = getattr(torch, dtype)
+    t = lambda *s: torch.tensor(  # noqa: E731
+        rng.standard_normal(s, np.float32), device=dev).to(dt)
+    q = t(B, sq, H, hd).transpose(1, 2)
+    k, v = t(B, skv, KV, hd).transpose(1, 2), t(B, skv, KV, hd).transpose(1, 2)
+    cast_ms = None
+    if cast:
+        kb, vb = k.bfloat16(), v.bfloat16()
+        k, v = kb.float(), vb.float()
+        cast_ms = device_ms(lambda: (kb.float(), vb.float()))
+    kw = dict(causal=causal, window=window, softcap=cap, q_offset=q_offset,
+              kv_len=kv_len)
+    plan = plan_launch(B, H, KV, sq, kv_len or skv, causal=causal,
+                       window=window, q_offset=q_offset, dtype=dt)
+    route = plan.route + (f" ({plan.n_split} splits of "
+                          f"{plan.split_len})" if plan.n_split else "")
+    err = _close_or_raise(f"flash_attention {name}",
+                          flash_attention_kernel(q, k, v, **kw),
+                          flash_attention_ref(q, k, v, **kw), TOL[dtype])
+    mask = attention_mask(sq, skv, causal=causal, window=window,
+                          q_offset=q_offset, kv_len=kv_len, device=dev)
+    pairs = int(mask.sum())
+    needed = int(mask.any(0).sum())          # keys some query reads
+    size = q.element_size()
+    bytes_ = size * (2 * B * H * sq * hd + 2 * B * KV * needed * hd)
+    flops = 4 * B * H * hd * pairs
+    library = None
+    if cap is None:     # no PyTorch call takes a softcap
+        qc, kc, vc = (x.contiguous() for x in (q, k, v))
+        if window is None and kv_len is None:
+            library = lambda: F.scaled_dot_product_attention(  # noqa
+                qc, kc, vc, is_causal=causal, enable_gqa=True)
+        else:
+            library = lambda: F.scaled_dot_product_attention(  # noqa
+                qc, kc, vc, attn_mask=mask, enable_gqa=True)
+    r = _model_record(
+        f"flash_attention {name} B={B} H={H} KV={KV} Sq={sq} Skv={skv} "
+        f"hd={hd} causal={causal} route={route}",
+        lambda: flash_attention_kernel(q, k, v, **kw),
+        lambda: flash_attention_ref(q, k, v, **kw), library, err,
+        TOL[dtype], bytes_, flops,
+        BF16_FLOPS if dt == torch.bfloat16 else FP32_FLOPS, 10,
+        # a float32 prefill (CUDA cores) takes up to milliseconds a call
+        reps=(dict(rounds=5, calls=10)
+              if dt == torch.float32 and sq > 1 else None))
+    if cast:
+        r["cast_ms"] = cast_ms
+        print(f"[model-kernels] {name}: the float32 casts of the bf16 K/V "
+              f"cache {1e3 * cast_ms!r}us a call")
+    return r
+
+
+def phase_model_kernels(dev) -> dict:
+    """Parity and timing of flash_attention and selective_scan at the
+    serving path's shapes (gemma3-1b's ``ATTN_CASES``, then the MoE
+    configs' ``MOE_ATTN_CASES`` and zamba2-7b's ``ZAMBA_ATTN_CASES``);
+    returns per-kernel records (one per case)."""
+    import numpy as np
 
     out: dict = {}
     rng = np.random.default_rng(13)
@@ -1612,49 +1740,10 @@ def phase_model_kernels(dev) -> dict:
                 in MOE_ATTN_CASES + ZAMBA_ATTN_CASES])
     for (name, dtype, B, H, KV, hd, sq, window, cap, q_offset,
          kv_len) in cases:
-        dt = getattr(torch, dtype)
         skv = CACHE_LEN if kv_len else sq
-        # the model's layout: (B, S, heads, hd) storage seen as (B, heads,
-        # S, hd), the decode keys a 1,040-slot cache
-        t = lambda *s: torch.tensor(  # noqa: E731
-            rng.standard_normal(s, np.float32), device=dev).to(dt)
-        q = t(B, sq, H, hd).transpose(1, 2)
-        k, v = t(B, skv, KV, hd).transpose(1, 2), t(B, skv, KV, hd).transpose(1, 2)
-        kw = dict(causal=True, window=window, softcap=cap, q_offset=q_offset,
-                  kv_len=kv_len)
-        plan = plan_launch(B, H, KV, sq, kv_len or skv, causal=True,
-                           window=window, q_offset=q_offset, dtype=dt)
-        route = plan.route + (f" ({plan.n_split} splits of "
-                              f"{plan.split_len})" if plan.n_split else "")
-        err = _close_or_raise(f"flash_attention {name}",
-                              flash_attention_kernel(q, k, v, **kw),
-                              flash_attention_ref(q, k, v, **kw), TOL[dtype])
-        mask = attention_mask(sq, skv, causal=True, window=window,
-                              q_offset=q_offset, kv_len=kv_len, device=dev)
-        pairs = int(mask.sum())
-        needed = int(mask.any(0).sum())          # keys some query reads
-        size = q.element_size()
-        bytes_ = size * (2 * B * H * sq * hd + 2 * B * KV * needed * hd)
-        flops = 4 * B * H * hd * pairs
-        library = None
-        if cap is None:     # no PyTorch call takes a softcap
-            qc, kc, vc = (x.contiguous() for x in (q, k, v))
-            if window is None and kv_len is None:
-                library = lambda: F.scaled_dot_product_attention(  # noqa
-                    qc, kc, vc, is_causal=True, enable_gqa=True)
-            else:
-                library = lambda: F.scaled_dot_product_attention(  # noqa
-                    qc, kc, vc, attn_mask=mask, enable_gqa=True)
-        out.setdefault("flash_attention", []).append(_model_record(
-            f"flash_attention {name} B={B} H={H} KV={KV} Sq={sq} Skv={skv} "
-            f"hd={hd} route={route}",
-            lambda: flash_attention_kernel(q, k, v, **kw),
-            lambda: flash_attention_ref(q, k, v, **kw), library, err,
-            TOL[dtype], bytes_, flops,
-            BF16_FLOPS if dt == torch.bfloat16 else FP32_FLOPS, 10,
-            # a float32 prefill (CUDA cores) takes up to milliseconds a call
-            reps=(dict(rounds=5, calls=10)
-                  if dt == torch.float32 and sq > 1 else None)))
+        out.setdefault("flash_attention", []).append(_attn_case(
+            dev, rng, name, dtype, B, H, KV, hd, sq, skv, window=window,
+            cap=cap, q_offset=q_offset, kv_len=kv_len))
     out.update(phase_scan(dev))
     return out
 
@@ -1731,6 +1820,56 @@ def _serve(arch, cfg, params, backend: str, label: str) -> dict:
     return r
 
 
+def to_f32(tree):
+    """A parameter tree's leaves in float32 (new tensors)."""
+    if isinstance(tree, dict):
+        return {k: to_f32(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [to_f32(v) for v in tree]
+    return tree.float()
+
+
+def hold_served(arch: str, k: dict, p: dict, k32: dict, p32: dict,
+                atol32: float = SERVE_TOL_F32,
+                rtol32: float = SERVE_TOL_F32) -> tuple:
+    """Phase 9's rules between a kernel run and a plain run, each with
+    ``tokens`` (B, n) and the ``logits`` (B, n, V) each was the argmax of,
+    in bf16 as served (``k``, ``p``) and with the same weights in float32
+    (``k32``, ``p32``): the first step's float32 logits within ``atol32``
+    + ``rtol32`` x |logit| (``SERVE_TOL_F32`` both) and the bf16 ones
+    within twice the bf16 noise (how far the plain route's bf16 logits lie
+    from its float32 ones), the greedy tokens by ``greedy_agreement`` at
+    each tolerance. Returns (err32, held32, err, tol, noise, held); raises
+    on a breach."""
+    import torch
+
+    from repro_torch.serve.engine import greedy_agreement
+
+    # float32: a wrong mask, index or layout moves logits by ~1e-1;
+    # float32 rounding over the depth stays far below SERVE_TOL_F32
+    got, want = k32["logits"][:, 0].float(), p32["logits"][:, 0].float()
+    err32 = float((got - want).abs().max())
+    if not torch.allclose(got, want, atol=atol32, rtol=rtol32):
+        raise AssertionError(f"{arch} f32 prefill logits: kernel route off "
+                             f"the plain route by {err32} (atol {atol32}, "
+                             f"rtol {rtol32})")
+    held32 = greedy_agreement(k32["tokens"], p32["tokens"], p32["logits"],
+                              atol=atol32, rtol=rtol32)
+    # bf16 as served: the kernel route may differ from the plain route
+    # by twice what bf16 rounding moves the plain route off its float32
+    # result (the noise of the served dtype itself)
+    noise = float((p["logits"][:, 0] - p32["logits"][:, 0]).abs().max())
+    tol = 2 * noise
+    err = float((k["logits"][:, 0] - p["logits"][:, 0]).abs().max())
+    if not err <= tol:
+        raise AssertionError(f"{arch} bf16 prefill logits: kernel route "
+                             f"off the plain route by {err} > {tol} "
+                             f"(2 x the bf16 noise {noise})")
+    held = greedy_agreement(k["tokens"], p["tokens"], p["logits"],
+                            atol=tol, rtol=0.0)
+    return err32, held32, err, tol, noise, held
+
+
 def phase_serve(dev) -> dict:
     """Each model of ``SERVE`` at full width through the router and the
     engine, on the kernels and on the plain route, in bf16 as served and
@@ -1743,14 +1882,6 @@ def phase_serve(dev) -> dict:
     from repro_torch.kernels import _cuda
     from repro_torch.launch.serve import serve
     from repro_torch.models import model as M
-    from repro_torch.serve.engine import greedy_agreement
-
-    def to_f32(tree):
-        if isinstance(tree, dict):
-            return {k: to_f32(v) for k, v in tree.items()}
-        if isinstance(tree, list):
-            return [to_f32(v) for v in tree]
-        return tree.float()
 
     out = {}
     for arch, kernel in SERVE:
@@ -1786,26 +1917,11 @@ def phase_serve(dev) -> dict:
         params32 = to_f32(params)
         k32 = _serve(arch, cfg, params32, "auto", "f32 kernels")
         p32 = _serve(arch, cfg, params32, "plain", "f32 plain")
+        vision = (phase_vlm_prefill(cfg, params, params32, dev)
+                  if cfg.vision_tokens else None)
         del params32
-        # float32: a wrong mask, index or layout moves logits by ~1e-1;
-        # float32 rounding over the depth stays far below SERVE_TOL_F32
-        err32 = _close_or_raise(f"{arch} f32 prefill logits",
-                                k32["logits"][:, 0], p32["logits"][:, 0],
-                                SERVE_TOL_F32)
-        held32 = greedy_agreement(k32["tokens"], p32["tokens"], p32["logits"],
-                                  atol=SERVE_TOL_F32, rtol=SERVE_TOL_F32)
-        # bf16 as served: the kernel route may differ from the plain route
-        # by twice what bf16 rounding moves the plain route off its float32
-        # result (the noise of the served dtype itself)
-        noise = float((p["logits"][:, 0] - p32["logits"][:, 0]).abs().max())
-        tol = 2 * noise
-        err = float((logits[:, 0] - p["logits"][:, 0]).abs().max())
-        if not err <= tol:
-            raise AssertionError(f"{arch} bf16 prefill logits: kernel route "
-                                 f"off the plain route by {err} > {tol} "
-                                 f"(2 x the bf16 noise {noise})")
-        held = greedy_agreement(k["tokens"], p["tokens"], p["logits"],
-                                atol=tol, rtol=0.0)
+        err32, held32, err, tol, noise, held = hold_served(arch, k, p, k32,
+                                                           p32)
         equal = int((k["tokens"] == p["tokens"]).sum())
         flips = split = None
         if cfg.moe is not None:
@@ -1835,7 +1951,7 @@ def phase_serve(dev) -> dict:
         out[arch] = dict(kernel=kernel, launches=launches[kernel],
                          logit_err=err, logit_tol=tol, logit_err_f32=err32,
                          held=held, held_f32=held32, route_flips=flips,
-                         profiled=split,
+                         profiled=split, vision_prefill=vision,
                          **{m: k[m] for m in ("prefill_ms",
                                               "decode_ms_per_token",
                                               "tokens_per_s", "peak_bytes")},
@@ -3018,6 +3134,233 @@ def phase_arctic(dev) -> dict:
     return record
 
 
+def phase_encdec_kernels(dev) -> list:
+    """Phase 16 (a): ``flash_attention`` at the encoder-decoder's and the
+    VLM's calls (``ENCDEC_ATTN_CASES``), each against its plain version at
+    ``TOL`` and timed as phase 8's cases."""
+    import numpy as np
+
+    rng = np.random.default_rng(16)
+    return [_attn_case(dev, rng, name, dtype, B, H, KV, hd, sq, skv,
+                       causal=causal, q_offset=q_offset, kv_len=kv_len,
+                       cast=cast)
+            for (name, dtype, B, H, KV, hd, sq, skv, causal, q_offset, kv_len,
+                 cast) in ENCDEC_ATTN_CASES]
+
+
+def _serve_encdec(cfg, params, frames, backend: str, label: str) -> dict:
+    """One greedy run of the encoder-decoder (``generate_encdec``: the
+    prefill, then ``SERVE_NEW`` decode steps) on ``frames``; prints its
+    numbers."""
+    import torch
+
+    from repro_torch.serve.engine import generate_encdec
+
+    dev = frames.device
+    torch.cuda.reset_peak_memory_stats(dev)
+    r = generate_encdec(cfg, params, frames, SERVE_NEW, backend=backend)
+    B = frames.shape[0]
+    r.update(prefill_ms=1e3 * r["prefill_s"],
+             decode_ms_per_token=1e3 * r["decode_s"] / SERVE_NEW,
+             tokens_per_s=B * SERVE_NEW / (r["prefill_s"] + r["decode_s"]),
+             peak_bytes=torch.cuda.max_memory_allocated(dev))
+    print(f"[encdec] {cfg.name} {label} requests={B} frames={frames.shape[1]} "
+          f"new={SERVE_NEW} prefill_ms={r['prefill_ms']!r} (encoder, cross "
+          f"caches, BOS step) decode_ms_per_token="
+          f"{r['decode_ms_per_token']!r} tokens_per_s={r['tokens_per_s']!r} "
+          f"peak_bytes={r['peak_bytes']}")
+    return r
+
+
+def _encdec_f32_caches(cfg, params, frames, backend: str) -> dict:
+    """The greedy run of :func:`_serve_encdec` (prefill, then
+    ``SERVE_NEW`` decode steps) with the decoder caches in float32, where
+    the reference keeps them in bf16 in every run. Not a served
+    configuration: phase 16 (b)'s float32 hold of the kernels, and its
+    measure of how far the bf16 caches move float32 logits."""
+    import torch
+
+    from repro_torch.models import model as M
+
+    B, S = frames.shape[:2]
+    caches = {k: [t.float() for t in v] for k, v in
+              M.init_caches(cfg, B, S, device=frames.device).items()}
+    toks, seen = [], []
+    with torch.inference_mode():
+        logits, caches = M.prefill(cfg, params, caches=caches, frames=frames,
+                                   backend=backend)
+        for i in range(SERVE_NEW):
+            tok = logits[:, -1:].argmax(-1)
+            toks.append(tok[:, 0])
+            seen.append(logits[:, -1])
+            logits, caches = M.decode_step(cfg, params, caches, tok, 1 + i,
+                                           backend=backend)
+    return {"tokens": torch.stack(toks, 1).cpu().numpy(),
+            "logits": torch.stack(seen, 1)}
+
+
+def phase_whisper(dev) -> dict:
+    """Phase 16 (b): whisper-large-v3 at full width and depth (32 encoder
+    and 32 decoder layers, seed 0) serving ``SERVE_REQUESTS`` requests of
+    ``WHISPER_FRAMES`` frame embeddings (from the seed) and ``SERVE_NEW``
+    greedy tokens, on the kernels and on the plain route, in bf16 as
+    served and with the same weights and frames in float32.
+    ``flash_attention`` launches once an encoder layer and twice a decoder
+    layer a step (the BOS step one of them), nothing else; the plain route
+    never.
+
+    The decoder caches are bf16 in every run, as the reference's, so a
+    float32 run rounds each K/V it caches, and a float32 difference of
+    ~1e-6 between the routes flips that rounding by a bf16 ulp at some
+    elements (0.2% of the cross keys at full depth, PERF.md), which moves
+    the float32 logits by more than ``SERVE_TOL_F32``. So the float32 hold
+    is made twice: with float32 caches on both routes
+    (:func:`_encdec_f32_caches`), at ``SERVE_TOL_F32``, where only the
+    kernels' float32 arithmetic parts the routes; and as served, bf16
+    caches, within twice the cache noise (how far the bf16 caches move
+    the plain route's float32 logits), as the bf16 run is held within
+    twice the bf16 noise (:func:`hold_served`)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _cuda
+    from repro_torch.models import model as M
+    from repro_torch.serve.engine import generate_encdec, greedy_agreement
+
+    cfg = get_config(WHISPER)
+    t_arch = t0 = time.perf_counter()
+    params = M.init_params(cfg, seed=0, device=dev)
+    torch.cuda.synchronize(dev)
+    init_s = time.perf_counter() - t0
+    frames = torch.tensor(np.random.default_rng(0).standard_normal(
+        (SERVE_REQUESTS, WHISPER_FRAMES, cfg.d_model), np.float32),
+        device=dev).bfloat16()
+    for backend in ("auto", "plain"):   # warm-up at the served shape
+        generate_encdec(cfg, params, frames, 2, backend=backend)
+    _cuda.reset_launches()                     # the main path
+    k = _serve_encdec(cfg, params, frames, "auto", "bf16 kernels")
+    launches = dict(_cuda.LAUNCHES)
+    _cuda.reset_launches()
+    p = _serve_encdec(cfg, params, frames, "plain", "bf16 plain")
+    plain_launches = dict(_cuda.LAUNCHES)
+    want = cfg.n_encoder_layers + 2 * cfg.n_layers * (1 + SERVE_NEW)
+    others = {n: c for n, c in launches.items()
+              if n != "flash_attention" and c}
+    if (launches["flash_attention"] != want or others
+            or any(plain_launches.values())):
+        raise AssertionError(
+            f"{WHISPER}: launches {launches} (want flash_attention = {want} "
+            f"and no other), plain route {plain_launches} (want none)")
+    logits = k["logits"]
+    if logits.shape != (SERVE_REQUESTS, SERVE_NEW, cfg.vocab) or not bool(
+            torch.isfinite(logits).all()):
+        raise AssertionError(f"{WHISPER}: logits {tuple(logits.shape)} not "
+                             "finite or of the wrong shape")
+    params32, frames32 = to_f32(params), frames.float()
+    k32 = _serve_encdec(cfg, params32, frames32, "auto", "f32 kernels")
+    p32 = _serve_encdec(cfg, params32, frames32, "plain", "f32 plain")
+    q32 = _encdec_f32_caches(cfg, params32, frames32, "auto")
+    r32 = _encdec_f32_caches(cfg, params32, frames32, "plain")
+    del params32
+    err_exact = _close_or_raise(f"{WHISPER} f32 first-step logits, float32 "
+                                "caches", q32["logits"][:, 0],
+                                r32["logits"][:, 0], SERVE_TOL_F32)
+    held_exact = greedy_agreement(q32["tokens"], r32["tokens"],
+                                  r32["logits"], atol=SERVE_TOL_F32,
+                                  rtol=SERVE_TOL_F32)
+    cache_noise = float((p32["logits"][:, 0] - r32["logits"][:, 0]).abs()
+                        .max())
+    tol32 = max(SERVE_TOL_F32, 2 * cache_noise)
+    err32, held32, err, tol, noise, held = hold_served(
+        WHISPER, k, p, k32, p32, atol32=tol32, rtol32=0.0)
+    equal = int((k["tokens"] == p["tokens"]).sum())
+    print(f"[encdec] {WHISPER} params={cfg.param_count()} init_s={init_s!r} "
+          f"f32 with float32 caches: first-step logits max_abs_err="
+          f"{err_exact!r} (tol {SERVE_TOL_F32}), tokens held={held_exact}; "
+          f"f32 as served (bf16 caches): max_abs_err={err32!r} (tol "
+          f"{tol32!r} = 2 x the caches' noise {cache_noise!r}), tokens "
+          f"held={held32}; bf16 max_abs_err={err!r} (tol {tol!r} = 2 x bf16 "
+          f"noise {noise!r}), tokens held={held}, equal={equal}/"
+          f"{k['tokens'].size}; flash_attention launches="
+          f"{launches['flash_attention']} (= {cfg.n_encoder_layers} + 2 x "
+          f"{cfg.n_layers} x {1 + SERVE_NEW}); wall_s="
+          f"{time.perf_counter() - t_arch!r}")
+    out = dict(kernel="flash_attention", launches=launches["flash_attention"],
+               logit_err=err, logit_tol=tol, logit_err_f32=err32,
+               logit_tol_f32=tol32, cache_noise_f32=cache_noise,
+               logit_err_f32_caches=err_exact, held=held, held_f32=held32,
+               held_f32_caches=held_exact, equal=equal, init_s=init_s,
+               **{m: k[m] for m in ("prefill_ms", "decode_ms_per_token",
+                                    "tokens_per_s", "peak_bytes")},
+               plain={m: p[m] for m in ("prefill_ms", "decode_ms_per_token",
+                                        "tokens_per_s")},
+               f32={m: k32[m] for m in ("prefill_ms", "decode_ms_per_token",
+                                        "tokens_per_s", "peak_bytes")})
+    del params, k, p, k32, p32, q32, r32, logits
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_vlm_prefill(cfg, params, params32, dev) -> dict:
+    """Phase 16 (c), inside phase 9's internvl2-2b run: one
+    ``model.prefill`` of ``SERVE_REQUESTS`` x ``SERVE_PROMPT`` tokens
+    whose first ``vision_tokens`` positions carry patch embeddings from
+    the seed, on the kernels and on the plain route, with the bf16 and
+    the float32 weights; the last position's logits held by
+    :func:`hold_served`'s rules, and off the text-only prefill's by more
+    than the bf16 tolerance (the patch embeddings reach the logits)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import _cuda
+    from repro_torch.models import model as M
+
+    B, S = SERVE_REQUESTS, SERVE_PROMPT
+    rng = np.random.default_rng(0)
+    tokens = torch.tensor(rng.integers(0, cfg.vocab, (B, S)), device=dev)
+    vision = torch.tensor(rng.standard_normal(
+        (B, cfg.vision_tokens, cfg.d_model), np.float32) * VLM_PATCH_SCALE,
+        device=dev)
+
+    def run(p, backend, **kw):
+        caches = M.init_caches(cfg, B, S, device=dev, dtype=p["embed"].dtype)
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        logits, _ = M.prefill(cfg, p, tokens, caches=caches, backend=backend,
+                              **kw)
+        torch.cuda.synchronize(dev)
+        return {"logits": logits, "tokens": logits.argmax(-1).cpu().numpy(),
+                "ms": 1e3 * (time.perf_counter() - t0)}
+
+    _cuda.reset_launches()
+    k = run(params, "auto", vision_embeds=vision)
+    launches = dict(_cuda.LAUNCHES)
+    want = kernel_layers(cfg, "flash_attention")
+    if launches["flash_attention"] != want or any(
+            c for n, c in launches.items() if n != "flash_attention"):
+        raise AssertionError(f"{cfg.name} vision prefill: launches "
+                             f"{launches} (want flash_attention = {want})")
+    p = run(params, "plain", vision_embeds=vision)
+    k32 = run(params32, "auto", vision_embeds=vision)
+    p32 = run(params32, "plain", vision_embeds=vision)
+    err32, held32, err, tol, noise, held = hold_served(
+        f"{cfg.name} vision prefill", k, p, k32, p32)
+    moved = float((run(params, "auto")["logits"] - k["logits"]).abs().max())
+    if not moved > tol:
+        raise AssertionError(f"{cfg.name}: the patch embeddings moved the "
+                             f"logits by {moved} <= {tol}")
+    print(f"[serve] {cfg.name} vision prefill ({cfg.vision_tokens} patch "
+          f"embeddings a request) kernels {k['ms']!r} ms, plain {p['ms']!r} "
+          f"ms; f32 logits max_abs_err={err32!r} (tol {SERVE_TOL_F32}); bf16 "
+          f"max_abs_err={err!r} (tol {tol!r} = 2 x bf16 noise {noise!r}); "
+          f"argmax held={held}/{held32}; text-only logits {moved!r} away; "
+          f"flash_attention launches={launches['flash_attention']}")
+    return dict(launches=launches["flash_attention"], prefill_ms=k["ms"],
+                plain_ms=p["ms"], logit_err=err, logit_tol=tol,
+                logit_err_f32=err32, moved_by_vision=moved)
+
+
 def ptxas_report(log: str) -> list:
     """``(kernel, "N registers, S bytes spill stores, L bytes spill
     loads")`` for each entry function of one ``nvcc -Xptxas -v`` log."""
@@ -3208,6 +3551,11 @@ def main() -> int:
     zamba_kernels = phase_train_kernels(dev, ZAMBA_BWD_CASES, "15 (a)")
     zamba_train = phase_train_zamba(dev)
     print(f"[zamba] phase 15 (a, c) wall_s={time.perf_counter() - t15!r}")
+    t16 = time.perf_counter()
+    encdec_kernels = phase_encdec_kernels(dev)
+    whisper = phase_whisper(dev)
+    print(f"[encdec] phase 16 (a, b) wall_s={time.perf_counter() - t16!r}")
+    model["flash_attention"] += encdec_kernels
     launches = {"net_rerate": golden["net_rerate"],
                 "event_engine": scale["event_engine"]}
     by_path = {name: {p: paths[p][name] for p, ks in PATH_KERNELS.items()
@@ -3221,6 +3569,9 @@ def main() -> int:
         by_serving.setdefault(r["kernel"], {})[arch] = r["launches"]
     by_serving["flash_attention"]["arctic-480b depth 1 prefill"] = \
         arctic["launches"]
+    by_serving["flash_attention"][WHISPER] = whisper["launches"]
+    by_serving["flash_attention"]["internvl2-2b vision prefill"] = \
+        served["internvl2-2b"]["vision_prefill"]["launches"]
     for name, counts in by_serving.items():
         launches[name] = sum(counts.values())
 
@@ -3429,6 +3780,7 @@ def main() -> int:
             entry["launches_training"] = {
                 a: t["launches"]["flash_attention"] for a, t in trained}
             entry["arctic"] = arctic
+            entry["whisper"] = whisper
         if entry["name"] == "selective_scan":
             entry["launches_training"] = \
                 mamba_train["launches"]["selective_scan"]

@@ -136,9 +136,9 @@ class ArchConfig:
         )
 
 
-#: The architectures whose blocks the port serves (``attn``, ``attn_local``,
-#: ``mamba1``, ``mamba2``, ``shared_attn``, the MoE feed-forward); the
-#: reference registers two more (ROADMAP queue 1).
+#: Every architecture of the reference's registry: decoder-only blocks
+#: (``attn``, ``attn_local``, ``mamba1``, ``mamba2``, ``shared_attn``, the
+#: MoE feed-forward), the encoder-decoder (whisper) and the VLM front end.
 _REGISTRY: dict[str, str] = {
     "gemma3-1b": "repro_torch.configs.gemma3_1b",
     "falcon-mamba-7b": "repro_torch.configs.falcon_mamba_7b",
@@ -148,6 +148,8 @@ _REGISTRY: dict[str, str] = {
     "granite-moe-1b-a400m": "repro_torch.configs.granite_moe_1b_a400m",
     "arctic-480b": "repro_torch.configs.arctic_480b",
     "zamba2-7b": "repro_torch.configs.zamba2_7b",
+    "whisper-large-v3": "repro_torch.configs.whisper_large_v3",
+    "internvl2-2b": "repro_torch.configs.internvl2_2b",
 }
 
 

@@ -29,17 +29,18 @@ from ..data.pipeline import DataConfig, GridDataLoader, SyntheticShardedDataset
 from ..device import resolve_device
 from ..fault.failures import TrainingSupervisor
 from ..grid.datagrid import DataGridService
-from ..models.transformer import check_config
 from ..train.optimizer import OptimizerConfig
-from ..train.train_step import TrainConfig, init_train_state, make_train_step
+from ..train.train_step import (TrainConfig, check_trainable, init_train_state,
+                                make_train_step)
 
 
 def build(cfg, *, batch: int, seq: int, steps: int, microbatches: int = 1,
           compress_grads: bool = False, device: "str | torch.device" = "cuda",
           seed: int = 0) -> dict:
     """The launcher's pieces: the grid and its loader, seeded parameters
-    and optimizer state on ``device``, and the train step."""
-    check_config(cfg)
+    and optimizer state on ``device``, and the train step. Raises for a
+    config the port does not train yet (:func:`check_trainable`)."""
+    check_trainable(cfg)
     dev = resolve_device(device)
     topo = GridTopology(2, 4, lan_bandwidth=50e9, wan_bandwidth=3.125e9,
                         storage_capacity=256e9)

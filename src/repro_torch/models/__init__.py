@@ -1,3 +1,5 @@
-"""Decoder-only language models of the serving path: the ``attn``,
-``attn_local`` and ``mamba1`` blocks of the reference's ``repro.models``,
-as plain functions on dictionaries of tensors."""
+"""The models of the serving and training paths, as plain functions on
+dictionaries of tensors: the reference's decoder-only blocks (``attn``,
+``attn_local``, ``shared_attn``, ``mamba1``, ``mamba2``, dense or MoE
+feed-forwards), its encoder-decoder (:mod:`.encdec`) and its VLM front end
+(:mod:`.model`)."""

@@ -17,14 +17,16 @@ from ..kernels.flash_attention import flash_attention, flash_attention_train
 
 
 def attention_blockwise(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                        window: int | None = None,
+                        causal: bool = True, window: int | None = None,
                         softcap: float | None = None, q_offset: int = 0,
                         kv_len: int | None = None,
                         backend: str = "auto") -> torch.Tensor:
-    """Causal prefill attention (the reference's online-softmax
-    ``attention_blockwise``). Returns (B, Sq, H, hd)."""
+    """Prefill attention (the reference's online-softmax
+    ``attention_blockwise``): causal by default; ``causal=False`` for the
+    encoder and for cross-attention, where Sq may differ from Skv. Returns
+    (B, Sq, H, hd)."""
     o = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                        v.transpose(1, 2), causal=True, window=window,
+                        v.transpose(1, 2), causal=causal, window=window,
                         softcap=softcap, q_offset=q_offset, kv_len=kv_len,
                         backend=backend)
     return o.transpose(1, 2)

@@ -19,6 +19,18 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor,
     return out.to(dtype)
 
 
+def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm in float32, cast back to x's dtype. The variance is the
+    population one (``jnp.var``'s; ``torch.var`` would divide by n - 1)."""
+    dtype = x.dtype
+    xf = x.float()
+    mu = xf.mean(-1, keepdim=True)
+    var = (xf - mu).square().mean(-1, keepdim=True)
+    out = (xf - mu) * torch.rsqrt(var + eps)
+    return (out * weight.float() + bias.float()).to(dtype)
+
+
 def rope(x: torch.Tensor, positions: torch.Tensor,
          theta: float) -> torch.Tensor:
     """Rotary embedding in float32. x: (B, S, H, hd); positions: (B, S)
@@ -47,7 +59,7 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")
 
 
-ACTS = {"swiglu": silu, "geglu": gelu}
+ACTS = {"swiglu": silu, "geglu": gelu, "gelu": gelu}
 
 
 def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:

@@ -28,7 +28,9 @@ writes its token's K/V at slot ``pos``.
 Blocks ``attn``, ``attn_local``, ``shared_attn``, ``mamba1`` and
 ``mamba2`` are ported, and an attention block's feed-forward is the MoE
 one (:mod:`.moe`, with the dense residual MLP beside it where the config
-has one) when ``cfg.moe`` is set. In train mode ``mamba1`` runs its scan
+has one) when ``cfg.moe`` is set, else the plain GELU MLP for
+``act="gelu"`` and the gated one for the others. The encoder-decoder is
+:mod:`.encdec`. In train mode ``mamba1`` runs its scan
 through :class:`~repro_torch.kernels.selective_scan.SelectiveScanFn` (the
 CUDA forward and backward kernels on the card); ``mamba2`` is plain
 PyTorch under autograd (:func:`.mamba.mamba2_forward`).
@@ -44,7 +46,7 @@ from .attention import attention_blockwise, attention_decode, attention_train
 from .common import ACTS, normal_init, rms_norm, rope
 from .mamba import (init_mamba1, init_mamba2, mamba1_decode, mamba1_forward,
                     mamba2_decode, mamba2_forward)
-from .mlp import gated_mlp, init_gated_mlp
+from .mlp import gated_mlp, gelu_mlp, init_gated_mlp, init_gelu_mlp
 from .moe import init_moe, moe_ffn
 
 ATTN_KINDS = ("attn", "attn_local", "shared_attn")
@@ -59,16 +61,13 @@ def _not_ported(what: str) -> NotImplementedError:
 
 
 def check_config(cfg: ArchConfig) -> None:
-    """Raise ``NotImplementedError`` for what the port does not serve."""
+    """Raise ``NotImplementedError`` for what the port does not serve: a
+    block kind or activation it does not know."""
     for kind in cfg.layer_pattern:
         if kind not in KINDS:
             raise _not_ported(f"block kind {kind!r}")
     if cfg.act not in ACTS:
-        raise _not_ported(f"act={cfg.act!r} (the plain GELU MLP)")
-    if cfg.enc_dec:
-        raise _not_ported("the encoder-decoder (whisper) path")
-    if cfg.vision_tokens:
-        raise _not_ported("the VLM front end")
+        raise _not_ported(f"act={cfg.act!r}")
 
 
 # --------------------------------------------------------------------------
@@ -95,6 +94,8 @@ def _init_attn_block(gen: torch.Generator, cfg: ArchConfig) -> dict:
     if cfg.moe is not None:
         p["moe"] = init_moe(gen, D, cfg.d_ff, cfg.moe.num_experts,
                             cfg.moe.dense_residual)
+    elif cfg.act == "gelu":
+        p["mlp"] = init_gelu_mlp(gen, D, cfg.d_ff)
     else:
         p["mlp"] = init_gated_mlp(gen, D, cfg.d_ff)
     return p
@@ -240,6 +241,8 @@ def _apply_attn(cfg: ArchConfig, kind: str, p: dict, x: torch.Tensor, *,
                     capacity_factor=cfg.moe.capacity_factor)
         if cfg.moe.dense_residual:
             y = y + gated_mlp(p["moe"]["res"], h2, cfg.act)
+    elif cfg.act == "gelu":
+        y = gelu_mlp(p["mlp"], h2)
     else:
         y = gated_mlp(p["mlp"], h2, cfg.act)
     return x + y, cache

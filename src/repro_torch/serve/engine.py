@@ -8,7 +8,10 @@ queue load; HRS replicates hot prefixes intra-pod first.
 
 The compute side is a (prefill, decode) pair over the model facade, run
 eagerly; the caches are allocated once at ``max_len`` and written in place
-(the reference pads them after prefill).
+(the reference pads them after prefill). The engine serves token prompts,
+as the reference's (a VLM config text-only); the encoder-decoder, whose
+requests are frames, runs the same greedy loop through
+:func:`generate_encdec`.
 """
 
 from __future__ import annotations
@@ -44,6 +47,11 @@ class ServeEngine:
 
     def __init__(self, cfg: ArchConfig, params: dict, *, max_len: int = 512,
                  backend: str = "auto") -> None:
+        if cfg.enc_dec:
+            raise ValueError(
+                f"ServeEngine serves token prompts; {cfg.name} is an "
+                "encoder-decoder whose requests are frames: serve it through "
+                "generate_encdec (model.prefill(frames=), model.decode_step)")
         self.cfg = cfg
         self.params = params
         self.max_len = max_len
@@ -71,23 +79,67 @@ class ServeEngine:
         t0 = time.perf_counter()
         logits, caches = M.prefill(cfg, params, tokens, caches=caches,
                                    backend=self.backend)
+        toks, seen, self.last_timing = _greedy(
+            logits, lambda tok, pos: M.decode_step(
+                cfg, params, caches, tok, pos, backend=self.backend)[0],
+            n_new, S, self._sync, t0)
+        return (toks, seen) if return_logits else toks
+
+
+def _greedy(logits: torch.Tensor, step, n_new: int, pos0: int, sync,
+            t0: float):
+    """The greedy loop after a prefill's ``logits``: token i is the argmax
+    of the last logits, then ``step(token, pos0 + i)`` gives the next
+    logits. Returns the tokens (B, n_new) numpy int64, the logits each was
+    the argmax of (B, n_new, V) on the device, and the wall seconds of the
+    prefill (from ``t0`` to the first token) and of the loop, each ended
+    by ``sync()``."""
+    tok = logits[:, -1:].argmax(-1)
+    sync()
+    t1 = time.perf_counter()
+    out, seen = [], []
+    for i in range(n_new):
+        out.append(tok[:, 0])
+        seen.append(logits[:, -1])
+        logits = step(tok, pos0 + i)
         tok = logits[:, -1:].argmax(-1)
-        self._sync()
-        t1 = time.perf_counter()
-        out, seen = [], []
-        for i in range(n_new):
-            out.append(tok[:, 0])
-            seen.append(logits[:, -1])
-            logits, caches = M.decode_step(cfg, params, caches, tok, S + i,
-                                           backend=self.backend)
-            tok = logits[:, -1:].argmax(-1)
-        self._sync()
-        self.last_timing = {"prefill_s": t1 - t0,
-                            "decode_s": time.perf_counter() - t1}
-        toks = (torch.stack(out, 1) if out else tokens[:, :0]).cpu().numpy()
-        if not return_logits:
-            return toks
-        return toks, (torch.stack(seen, 1) if seen else logits[:, :0])
+    sync()
+    timing = {"prefill_s": t1 - t0, "decode_s": time.perf_counter() - t1}
+    toks = (torch.stack(out, 1) if out else tok[:, :0]).cpu().numpy()
+    return toks, (torch.stack(seen, 1) if seen else logits[:, :0]), timing
+
+
+@torch.inference_mode()
+def generate_encdec(cfg: ArchConfig, params: dict, frames, n_new: int, *,
+                    backend: str = "auto") -> dict:
+    """Greedy decoding of an encoder-decoder (whisper) from frame
+    embeddings (B, S_enc, D): ``model.prefill`` (the encoder, the cross
+    caches and the BOS step at position 0), then ``n_new`` decode steps at
+    positions 1..n_new, the loop :meth:`ServeEngine.generate` runs. Returns
+    ``tokens`` (B, n_new) numpy int64, the ``logits`` (B, n_new, V) each
+    was the argmax of (on the device), and ``prefill_s`` / ``decode_s``
+    (wall, each ended by a device synchronisation on a card)."""
+    if not cfg.enc_dec:
+        raise ValueError(f"{cfg.name} is not an encoder-decoder: serve it "
+                         "through ServeEngine")
+    dev = params["embed"].device
+    frames = torch.as_tensor(frames, device=dev)
+    B, S = frames.shape[:2]
+    dec_len = max(1, S // M.DEC_RATIO)
+    if n_new >= dec_len:
+        raise ValueError(f"{n_new} new tokens need {n_new + 1} decoder "
+                         f"positions; {S} frames give {dec_len}")
+    sync = ((lambda: torch.cuda.synchronize(dev)) if dev.type == "cuda"
+            else (lambda: None))
+    caches = M.init_caches(cfg, B, S, device=dev)
+    t0 = time.perf_counter()
+    logits, caches = M.prefill(cfg, params, caches=caches, frames=frames,
+                               backend=backend)
+    toks, seen, timing = _greedy(
+        logits, lambda tok, pos: M.decode_step(
+            cfg, params, caches, tok, pos, backend=backend)[0],
+        n_new, 1, sync, t0)
+    return {"tokens": toks, "logits": seen, **timing}
 
 
 class GridRouter:

@@ -24,6 +24,7 @@ from ..configs.base import ArchConfig
 from ..device import resolve_device
 from ..models import model as M
 from ..models.moe import moe_aux_loss
+from ..models.transformer import check_config
 from .optimizer import (OptimizerConfig, adamw_update, init_compress_state,
                         init_opt_state, tree_map)
 
@@ -34,6 +35,18 @@ class TrainConfig:
     remat: bool = True
     moe_aux_weight: float = 0.01
     opt: OptimizerConfig = OptimizerConfig()
+
+
+def check_trainable(cfg: ArchConfig) -> None:
+    """Raise ``NotImplementedError`` for a config the port serves but does
+    not train on the card yet: the encoder-decoder (whisper) and the VLM
+    front end (ROADMAP queue 1); else :func:`check_config`'s refusals."""
+    check_config(cfg)
+    for flag, what in (("enc_dec", "the encoder-decoder (whisper) path"),
+                       ("vision_tokens", "the VLM front end")):
+        if getattr(cfg, flag):
+            raise NotImplementedError(f"training {what} is not ported to "
+                                      "repro_torch yet (ROADMAP queue 1)")
 
 
 def micro_loss(cfg: ArchConfig, tcfg: TrainConfig, params: dict,
@@ -104,7 +117,9 @@ def grad_fn(cfg: ArchConfig, tcfg: TrainConfig, params: dict, batch: dict,
 def make_train_step(cfg: ArchConfig, tcfg: TrainConfig):
     """Returns train_step(params, opt_state, batch) -> (params, state,
     metrics); ``batch`` holds (B, S) ``tokens`` and ``labels`` tensors on
-    the parameters' device."""
+    the parameters' device. Raises for a config :func:`check_trainable`
+    refuses."""
+    check_trainable(cfg)
 
     def train_step(params, opt_state, batch):
         if tcfg.opt.compress_grads and "ef" not in opt_state:
@@ -126,7 +141,9 @@ def init_train_state(cfg: ArchConfig, *, seed: int = 0,
                      compress_grads: bool = False):
     """Seeded parameters (:func:`repro_torch.models.model.init_params`)
     and a fresh optimizer state on ``device``, with a zero error-feedback
-    tree under ``"ef"`` when ``compress_grads``."""
+    tree under ``"ef"`` when ``compress_grads``. Raises for a config
+    :func:`check_trainable` refuses."""
+    check_trainable(cfg)
     params = M.init_params(cfg, seed=seed, device=resolve_device(device))
     state = init_opt_state(params)
     if compress_grads:

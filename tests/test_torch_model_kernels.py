@@ -7,7 +7,9 @@ kernel or raises; nothing falls back). On the card (``-m gpu``) each kernel
 is held against its plain version — the grid of ``tests/test_kernels.py``,
 the serving path's shapes, the model's strided layouts, the edges of each
 ``flash_attention`` route (ragged tiles, empty and ragged decode splits,
-every head dim, a call replayed from a CUDA graph), the scan's edges
+every head dim, a call replayed from a CUDA graph; the non-causal mask
+of the encoder-decoder: Sq = Skv, Sq != Skv, S not a multiple of 64, its
+decode over 17 self and 1,500 cross keys), the scan's edges
 (every state width, ragged rounds and channel tiles, rows off a 16-byte
 boundary, a call replayed from a CUDA graph) — at that file's
 tolerances: ``TOL`` for attention, ten times ``TOL`` for the scan (1,024
@@ -287,6 +289,69 @@ def test_cuda_attention_prefill_edges(B, H, KV, Sq, Skv, hd, window, softcap,
     np.testing.assert_allclose(_f32(got), _f32(flash_attention_ref(q, k, v,
                                                                    **kw)),
                                atol=TOL[dtype], rtol=TOL[dtype])
+
+
+#: non-causal calls (the encoder-decoder): Sq = Skv on whole 64-key tiles,
+#: S not a multiple of 64 (whisper-large-v3's 1,500 frames), Sq != Skv
+#: (cross-attention over the encoder's output), G > 1
+NONCAUSAL_IDS = "B,H,KV,Sq,Skv,hd"
+NONCAUSAL = [
+    (2, 4, 4, 128, 128, 64),
+    (2, 4, 4, 100, 100, 64),
+    (1, 20, 20, 1500, 1500, 64),    # whisper-large-v3's encoder layer
+    (2, 4, 4, 19, 200, 64),
+    (2, 20, 20, 187, 1500, 64),     # its cross-attention, teacher-forced
+    (2, 8, 4, 70, 130, 128),
+    (1, 4, 2, 33, 65, 16),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize(NONCAUSAL_IDS, NONCAUSAL)
+def test_cuda_attention_noncausal(B, H, KV, Sq, Skv, hd, dtype):
+    """``causal=False`` on the prefill routes, on the model's strided
+    views: every query sees every key, the last key tile ragged where Skv
+    is not a multiple of 64."""
+    dev = _card()
+    q, k, v = (t.transpose(1, 2).contiguous().transpose(1, 2) for t in
+               _qkv(Sq + Skv + hd, B, H, KV, Sq, Skv, hd, dtype, dev))
+    plan = plan_launch(B, H, KV, Sq, Skv, causal=False, window=None,
+                       q_offset=0, dtype=q.dtype)
+    assert plan.route == ("mma" if dtype == "bfloat16" else "simt")
+    assert (plan.key_lo, plan.key_hi) == (0, Skv)
+    before = _cuda.LAUNCHES["flash_attention"]
+    got = flash_attention_kernel(q, k, v, causal=False)
+    assert _cuda.LAUNCHES["flash_attention"] == before + 1
+    np.testing.assert_allclose(_f32(got), _f32(flash_attention_ref(
+        q, k, v, causal=False)), atol=TOL[dtype], rtol=TOL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("n,slots", [(17, 187), (1500, 1500)])
+def test_cuda_attention_encdec_decode(n, slots, causal, dtype):
+    """whisper-large-v3's decode: one query a head (H 20 on KV 20, hd 64)
+    against ``n`` keys of a ``slots``-slot cache, the self cache at 17
+    keys of 187 and the cross cache at all 1,500 (24 splits of 64, the
+    last 28 keys long), causal with ``q_offset = n - 1`` as the model
+    calls it and non-causal."""
+    dev = _card()
+    q, k, v = _decode_inputs(n + slots, 4, 1, 20, 1, 64, dtype, dev,
+                             cache=slots)
+    kw = dict(causal=causal, q_offset=n - 1 if causal else 0, kv_len=n)
+    plan = plan_launch(4, 20, 20, 1, n, causal=causal, window=None,
+                       q_offset=kw["q_offset"], dtype=q.dtype)
+    assert plan.route == "decode" and (plan.key_lo, plan.key_hi) == (0, n)
+    got = flash_attention_kernel(q, k, v, **kw)
+    np.testing.assert_allclose(_f32(got),
+                               _f32(flash_attention_ref(q, k, v, **kw)),
+                               atol=TOL[dtype], rtol=TOL[dtype])
+    np.testing.assert_allclose(
+        _f32(got), _f32(flash_attention_split_ref(
+            q, k, v, split_len=plan.split_len, **kw)),
+        atol=TOL[dtype], rtol=TOL[dtype])
 
 
 def _decode_inputs(seed, B, G, KV, Sq, hd, dtype, dev, cache=1040):

@@ -39,6 +39,7 @@ from repro_torch.models import moe as TMoE
 from repro_torch.models.mlp import gated_mlp
 from repro_torch.models.transformer import check_config
 from repro_torch.train.optimizer import tree_leaves
+from repro_torch.train.train_step import check_trainable
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 MOE_ARCHS = ("granite-moe-1b-a400m", "arctic-480b")
@@ -272,12 +273,14 @@ def test_moe_param_counts(arch, total, active):
 
 @pytest.mark.parametrize("arch", MOE_ARCHS)
 def test_moe_configs_pass_check_config(arch):
-    """The MoE configs are served; the other unported paths still raise
+    """The MoE configs are served and trained; the training step still
+    refuses the encoder-decoder flag
     (``test_torch_serve.py::test_unported_paths_raise``)."""
     cfg = get_config(arch)
     check_config(cfg)
+    check_trainable(cfg)
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-        check_config(dataclasses.replace(cfg, enc_dec=True))
+        check_trainable(dataclasses.replace(cfg, enc_dec=True))
     p = M.init_params(cfg.reduced(), seed=0, device="cpu")
     block = p["groups"][0]["b0"]
     assert "mlp" not in block and set(block["moe"]) == (

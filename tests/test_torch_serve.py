@@ -36,6 +36,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs.base import arch_ids as jax_arch_ids
 from repro.configs.base import get_config as jax_config
 from repro.core import GridTopology as JaxTopology
 from repro.grid.datagrid import DataGridService as JaxGrid
@@ -48,10 +49,13 @@ from repro_torch.configs import arch_ids, get_config
 from repro_torch.core import GridTopology
 from repro_torch.grid.datagrid import DataGridService
 from repro_torch.launch import serve as launch_serve
+from repro_torch.launch import train as launch_train
 from repro_torch.models import model as M
 from repro_torch.models.mlp import gated_mlp
 from repro_torch.serve.engine import (GridRouter, Request, ServeEngine,
                                       greedy_agreement)
+from repro_torch.train.train_step import (TrainConfig, init_train_state,
+                                          make_train_step)
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 B, S, NEW = 2, 40, 8          # prompts longer than the reduced 32-key window
@@ -60,21 +64,26 @@ B, S, NEW = 2, 40, 8          # prompts longer than the reduced 32-key window
 #: where that rounding moves them past TOL: zamba2-7b's Mamba-2 blocks
 #: (observed 6.0e-5)
 ENGINE_TOL_F32 = {"zamba2-7b": 1e-4}
+#: the configs the engine serves (internvl2-2b text-only, as the
+#: reference's engine); whisper-large-v3 is held by test_torch_encdec.py
 ARCHS = ["gemma3-1b", "falcon-mamba-7b", "granite-3-8b", "qwen2-72b",
-         "gemma2-27b", "granite-moe-1b-a400m", "arctic-480b", "zamba2-7b"]
+         "gemma2-27b", "granite-moe-1b-a400m", "arctic-480b", "zamba2-7b",
+         "internvl2-2b"]
 
 
 def test_registry_and_configs_match_reference():
-    assert sorted(arch_ids()) == sorted(ARCHS)
-    for arch in ARCHS:
+    """The port registers every config of the reference's registry, each
+    equal to the reference's, full and reduced."""
+    assert sorted(arch_ids()) == sorted(jax_arch_ids())
+    for arch in arch_ids():
         for reduce in (False, True):
             got, want = get_config(arch), jax_config(arch)
             if reduce:
                 got, want = got.reduced(), want.reduced()
             assert dataclasses.asdict(got) == dataclasses.asdict(want)
             assert got.param_count() == want.param_count()
-    with pytest.raises(KeyError, match="whisper-large-v3"):
-        get_config("whisper-large-v3")
+    with pytest.raises(KeyError, match="unknown arch 'whisper-large-v4'"):
+        get_config("whisper-large-v4")
 
 
 class _JaxEngine(JaxEngine):
@@ -256,11 +265,21 @@ def test_greedy_agreement_rule():
 
 
 def test_unported_paths_raise():
+    """The encoder-decoder and the VLM front end are served, not yet
+    trained: every training entry point refuses them (ROADMAP queue 1);
+    an LM block with ``act="gelu"`` builds."""
+    for arch in ("whisper-large-v3", "internvl2-2b"):
+        cfg = get_config(arch).reduced()
+        M.init_params(cfg, device="cpu")
+        for build in (lambda: init_train_state(cfg, device="cpu"),
+                      lambda: make_train_step(cfg, TrainConfig()),
+                      lambda: launch_train.build(cfg, batch=2, seq=8, steps=1,
+                                                 device="cpu")):
+            with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
+                build()
     base = get_config("granite-3-8b").reduced()
-    for replace in (dict(enc_dec=True), dict(vision_tokens=8),
-                    dict(act="gelu")):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-            M.init_params(dataclasses.replace(base, **replace), device="cpu")
+    p = M.init_params(dataclasses.replace(base, act="gelu"), device="cpu")
+    assert set(p["groups"][0]["b0"]["mlp"]) == {"w1", "b1", "w2", "b2"}
 
 
 @pytest.mark.parametrize("act", ["swiglu", "geglu"])

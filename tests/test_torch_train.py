@@ -287,10 +287,17 @@ def test_launcher_compress_grads_checkpoints_the_error_feedback(capsys,
 
 @pytest.mark.parametrize("arch", sorted(arch_ids()))
 def test_one_step_is_finite_for_every_config(arch):
+    """Every config the port trains takes one finite step; the
+    encoder-decoder and the VLM front end, served but not trained yet,
+    are refused (ROADMAP queue 1)."""
     cfg = get_config(arch).reduced()
     p = M.init_params(cfg, seed=0, device="cpu")
-    step = make_train_step(cfg, TrainConfig(opt=OptimizerConfig(
-        warmup_steps=1)))
+    tcfg = TrainConfig(opt=OptimizerConfig(warmup_steps=1))
+    if cfg.enc_dec or cfg.vision_tokens:
+        with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
+            make_train_step(cfg, tcfg)
+        return
+    step = make_train_step(cfg, tcfg)
     new, state, m = step(p, init_opt_state(p), _as_torch(_batch(cfg, s=24)))
     assert np.isfinite(float(m["loss"])) and float(m["grad_norm"]) > 0
     for t in tree_leaves(new) + tree_leaves(state["m"]):

@@ -52,8 +52,9 @@ from repro_torch.models import model as M
 from repro_torch.models.transformer import check_config
 from repro_torch.train.optimizer import (OptimizerConfig, init_opt_state,
                                          tree_leaves, tree_map)
-from repro_torch.train.train_step import (TrainConfig, grad_fn,
-                                          init_train_state, make_train_step)
+from repro_torch.train.train_step import (TrainConfig, check_trainable,
+                                          grad_fn, init_train_state,
+                                          make_train_step)
 from test_torch_serve import _follow_conv_caches, _JaxEngine
 from test_torch_train import _as_torch, _batch, _close, _pairs
 
@@ -97,7 +98,8 @@ def _reference(dtype: str, depth: int):
 def test_layout_and_check_config():
     """The shared block lives once, at ``params["shared_attn"]``; the
     groups hold the six mamba2 blocks; the caches hold a KV slot for each
-    application; the other unported paths still raise."""
+    application; the config builds with a GELU MLP, and the training
+    step refuses the encoder-decoder and VLM flags (ROADMAP queue 1)."""
     for depth in DEPTHS:
         cfg, jcfg, jp, p = _reference("float32", depth)
         assert set(p) == set(jp) == {"embed", "groups", "rest", "final_norm",
@@ -117,10 +119,10 @@ def test_layout_and_check_config():
         assert set(caches["groups"][0]["b0"]["conv"]) == {"x", "B", "C"}
     full = get_config(ARCH)
     check_config(full)
-    for replace in (dict(enc_dec=True), dict(vision_tokens=8),
-                    dict(act="gelu")):
+    check_config(dataclasses.replace(full, act="gelu"))
+    for replace in (dict(enc_dec=True), dict(vision_tokens=8)):
         with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-            check_config(dataclasses.replace(full, **replace))
+            check_trainable(dataclasses.replace(full, **replace))
 
 
 def test_param_counts_match_reference():
