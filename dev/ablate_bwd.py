@@ -114,7 +114,7 @@ def _inputs(case, dev, rng):
         device=dev).bfloat16().transpose(1, 2)
     q, k, v, do = t(H), t(KV), t(KV), t(H)
     kw = dict(causal=True, window=window, softcap=cap)
-    o, lse = flash_attention_lse_ref(q, k, v, **kw)
+    _, lse, o = flash_attention_lse_ref(q, k, v, **kw)
     return (q, k, v, o, lse, do), kw
 
 

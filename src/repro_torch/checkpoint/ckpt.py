@@ -15,7 +15,7 @@ either package restores in the other. Restore:
     max-available-bandwidth holder, cross-region only as a fallback.
 
 Placing restored tensors on a device mesh (the reference's
-``reshard_for_mesh``) waits for the port's mesh (ROADMAP queue 1, item 3).
+``reshard_for_mesh``) waits for the port's mesh (ROADMAP queue 1, item 1).
 """
 
 from __future__ import annotations
@@ -188,4 +188,4 @@ def reshard_for_mesh(tree, mesh, sharding_fn):
     """Elastic re-shard onto a device mesh: not ported yet."""
     raise NotImplementedError(
         "reshard_for_mesh needs the port's device mesh, which is not ported "
-        "to repro_torch yet (ROADMAP queue 1, item 3)")
+        "to repro_torch yet (ROADMAP queue 1, item 1)")

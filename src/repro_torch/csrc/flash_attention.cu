@@ -2,7 +2,9 @@
 // in prefill (a 1,024-token prompt) and in decode (one query against the
 // cache). On the training path the two prefill routes also write each row's
 // log-sum-exp (lse, float32, natural log), which the backward
-// (flash_attention_bwd.cu) reads to rebuild P without a second softmax.
+// (flash_attention_bwd.cu) reads to rebuild P without a second softmax, and
+// the bf16 route the output in float32 before its rounding (o32), from which
+// the backward's Delta = rowsum(dO * O) is exact.
 //
 // Replaces the Pallas TPU kernel _flash_kernel
 // (src/repro/kernels/flash_attention/kernel.py:29, pallas_call at :113). That
@@ -95,6 +97,8 @@ struct Params {
   void* o;
   float* scratch;       // decode: (B, H, Sq, n_split, hd + 2) float32
   float* lse;           // prefill, when not null: (B, H, Sq) float32, ln units
+  float* o32;           // bf16 prefill with lse: the output in float32
+                        // before its rounding, with o's element strides
   int64_t qs[3], ks[3], vs[3], os[3];  // element strides: batch, head, pos
   int batch;
   int heads;            // H
@@ -582,6 +586,14 @@ __global__ void __launch_bounds__(kMmaThreads, 2) flash_kernel_mma(Params p) {
       *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j + 2 * tq) =
           __floats2bfloat162_rn(acc[j][2 * half] / denom,
                                 acc[j][2 * half + 1] / denom);
+    if (p.o32 != nullptr) {
+      float* frow = p.o32 + b * p.os[0] + h * p.os[1] + qi * p.os[2];
+#pragma unroll
+      for (int j = 0; j < kDTiles; ++j)
+        *reinterpret_cast<float2*>(frow + 8 * j + 2 * tq) =
+            make_float2(acc[j][2 * half] / denom,
+                        acc[j][2 * half + 1] / denom);
+    }
   }
 }
 
@@ -910,9 +922,13 @@ void tile_rows(Params* p, int64_t Sq, int rows) {
 // runs two kernels, the others one, all on `stream` of `device`. `lse`, when
 // not null, takes each row's log-sum-exp of its scaled (and capped) scores,
 // float32 (B, H, Sq) in natural-log units, for the backward; routes 0 and 1
-// only. Returns the first CUDA error (0 on success).
+// only. `o32` takes the output in float32 before its rounding to bf16, at
+// o's element strides, where route 1 writes lse (and is null elsewhere):
+// the backward's Delta from it is the exact rowsum(dO * P V). Returns the
+// first CUDA error (0 on success).
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
-                               void* o, float* lse, const int64_t* strides,
+                               void* o, float* lse, float* o32,
+                               const int64_t* strides,
                                int64_t B,
                                int64_t H, int64_t KV, int64_t Sq, int64_t Skv,
                                int64_t kend, int64_t hd, int bf16, int causal,
@@ -931,6 +947,9 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
   p.o = o;
   p.scratch = static_cast<float*>(scratch);
   p.lse = lse;
+  p.o32 = o32;
+  if ((o32 != nullptr) != (lse != nullptr && route == 1))
+    return (int)cudaErrorInvalidValue;
   for (int i = 0; i < 3; ++i) {
     p.qs[i] = strides[i];
     p.ks[i] = strides[3 + i];

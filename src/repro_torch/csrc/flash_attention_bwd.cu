@@ -67,7 +67,8 @@
 //      cuTensorMapEncodeTiled, found through cudaGetDriverEntryPoint),
 //      two stages deep at hd 256 and four below, full / empty mbarriers
 //      between it and the consumers.
-//   delta_kernel: Delta in float32 (B, H, Sq), hd / 8 lanes a row.
+//   delta_kernel: Delta in float32 (B, H, Sq), hd / 8 lanes a row, from
+//      the forward's float32 O (its output before the rounding to bf16).
 // No float atomics: after its walk each block of a cluster puts its float32
 // dK and dV in shared memory, and each block sums a slice of them across
 // the cluster through distributed shared memory in ascending rank (= head)
@@ -97,7 +98,7 @@ struct BwdParams {
   CUtensorMap tq_kv, tdo_kv;   // Q, dO boxes of the dK/dV row tiles
   CUtensorMap tq_q, tdo_q;     // Q, dO boxes of the dQ row tiles
   CUtensorMap tk, tv;          // K, V boxes of 64 keys (ending at kend)
-  const T* o;
+  const float* o;              // the forward's output in float32
   const T* dout;
   int64_t os[3], dos[3];       // element strides: batch, head, position
   const float* lse;            // (B, H, Sq), natural log
@@ -309,18 +310,18 @@ __global__ void __launch_bounds__(256) delta_kernel(BwdParams p) {
     const int64_t i = row % p.sq;
     const int64_t h = (row / p.sq) % p.heads;
     const int64_t b = row / (p.sq * p.heads);
-    const T* orow = p.o + b * p.os[0] + h * p.os[1] + i * p.os[2];
+    const float* orow = p.o + b * p.os[0] + h * p.os[1] + i * p.os[2];
     const T* drow = p.dout + b * p.dos[0] + h * p.dos[1] + i * p.dos[2];
     for (int c = lane % per_row; c < chunks; c += per_row) {
-      const uint4 ov = *reinterpret_cast<const uint4*>(orow + 8 * c);
       const uint4 dv = *reinterpret_cast<const uint4*>(drow + 8 * c);
-      const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
       const __nv_bfloat162* d2 = reinterpret_cast<const __nv_bfloat162*>(&dv);
+      const float4* o4 = reinterpret_cast<const float4*>(orow + 8 * c);
+      const float4 a = o4[0], z = o4[1];
+      const float of[8] = {a.x, a.y, a.z, a.w, z.x, z.y, z.z, z.w};
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const float2 of = __bfloat1622float2(o2[e]);
         const float2 df = __bfloat1622float2(d2[e]);
-        sum += of.x * df.x + of.y * df.y;
+        sum += of[2 * e] * df.x + of[2 * e + 1] * df.y;
       }
     }
   }
@@ -1224,10 +1225,13 @@ int launch_bwd_f32(const F32Params& p, cudaStream_t st) {
 
 }  // namespace
 
-// q (B, H, Sq, hd), k and v (B, KV, Skv, hd), o and dout (B, H, Sq, hd), each
-// bf16 through its element strides (batch, head, position; unit stride along
-// hd, 16-byte aligned base and strides), which `strides` holds on the host:
-// q, k, v, o, dout, dq, dk, dv, three each. lse: the forward's float32
+// q (B, H, Sq, hd), k and v (B, KV, Skv, hd) and dout (B, H, Sq, hd), each
+// bf16, and o (B, H, Sq, hd), the forward's float32 output before its
+// rounding (Delta from it is exact where a bf16 O would round away the
+// difference dP - Delta of nearly equal rows), each through its element
+// strides (batch, head, position; unit stride along hd, 16-byte aligned base
+// and strides), which `strides` holds on the host: q, k, v, o, dout, dq, dk,
+// dv, three each. lse: the forward's float32
 // (B, H, Sq); delta: float32 scratch of the same shape. Writes dq (B, H, Sq,
 // hd) and dk, dv (B, KV, Skv, hd), bf16, through their strides. Keys
 // [0, kend) exist (1 <= kend <= Skv); window <= 0 and softcap <= 0 mean none.
@@ -1249,7 +1253,7 @@ extern "C" int flash_attention_bwd(
   if (KV < 1 || H % KV != 0 || Sq < 1 || Skv < 1 || kend < 1 || kend > Skv)
     return (int)cudaErrorInvalidValue;
   BwdParams p;
-  p.o = static_cast<const T*>(o);
+  p.o = static_cast<const float*>(o);
   p.dout = static_cast<const T*>(dout);
   p.lse = lse;
   p.delta = delta;

@@ -64,9 +64,9 @@ _SIGNATURES = {
     "value_score": ("value_score",
                     [_VP, _VP, _VP, _VP, _I64, _I64, _INT, _VP, _VP, _INT]),
     "flash_attention": ("flash_attention",
-                        [_VP, _VP, _VP, _VP, _VP, _VP, _I64, _I64, _I64, _I64,
-                         _I64, _I64, _I64, _INT, _INT, _I64, _F32, _I64, _F32,
-                         _INT, _I64, _I64, _I64, _I64, _VP, _VP, _INT]),
+                        [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _I64, _I64, _I64,
+                         _I64, _I64, _I64, _I64, _INT, _INT, _I64, _F32, _I64,
+                         _F32, _INT, _I64, _I64, _I64, _I64, _VP, _VP, _INT]),
     "flash_attention_bwd": ("flash_attention_bwd",
                             [_VP] * 11 + [_I64] * 7 + [_INT, _I64, _F32, _I64,
                                                        _F32, _VP, _VP, _VP,

@@ -105,9 +105,12 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     call allocates its float32 split scratch here, on the current stream
     (valid under CUDA-graph capture); the kernels allocate nothing.
 
-    ``with_lse``: also return each row's log-sum-exp, float32 ``(B, H,
-    Sq)`` (:func:`.ref.flash_attention_lse_ref`), for the backward; the call
-    then takes a prefill route whatever its row count."""
+    ``with_lse``: the forward of the training path, as
+    :func:`.ref.flash_attention_lse_ref`: ``(out, lse, out32)``, each row's
+    log-sum-exp float32 ``(B, H, Sq)`` and the output in float32 before its
+    rounding to bf16 (the bf16 route writes it beside ``out``; for float32
+    inputs it is ``out``), which the backward reads; the call then takes a
+    prefill route whatever its row count."""
     _check(q, k, v)
     if window is not None and window < 1:
         raise ValueError(f"flash_attention: window {window} < 1")
@@ -119,9 +122,14 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty((B, Sq, H, hd), dtype=q.dtype, device=dev).transpose(1, 2)
     lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=dev)
            if with_lse else None)
+    out32 = out
+    if with_lse and q.dtype == torch.bfloat16:
+        out32 = torch.empty((B, Sq, H, hd), dtype=torch.float32,
+                            device=dev).transpose(1, 2)
+    done = (out, lse, out32) if with_lse else out
     kend = Skv if kv_len is None else max(0, min(Skv, kv_len))
     if out.numel() == 0:
-        return (out, lse) if with_lse else out
+        return done
     plan = plan_launch(B, H, KV, Sq, kend, causal=causal, window=window,
                        q_offset=q_offset, dtype=q.dtype)
     if with_lse and plan.route == "decode":     # the decode splits keep no lse
@@ -135,7 +143,8 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                     *v.stride()[:3], *out.stride()[:3])
     err = _cuda.entry_point("flash_attention")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        None if lse is None else lse.data_ptr(), strides,
+        None if lse is None else lse.data_ptr(),
+        out32.data_ptr() if out32 is not out else None, strides,
         B, H, KV, Sq, Skv, kend, hd, int(q.dtype == torch.bfloat16),
         int(causal), 0 if window is None else window,
         0.0 if softcap is None else softcap, q_offset, hd ** -0.5,
@@ -143,4 +152,4 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         plan.n_split, None if scratch is None else scratch.data_ptr(),
         _cuda.stream(dev), dev.index)
     _cuda.check("flash_attention", err)
-    return (out, lse) if with_lse else out
+    return done

@@ -85,19 +85,23 @@ def flash_attention_lse_ref(q: torch.Tensor, k: torch.Tensor,
                             window: int | None = None,
                             softcap: float | None = None, q_offset: int = 0,
                             kv_len: int | None = None, with_lse: bool = True):
-    """:func:`flash_attention_ref` and each row's log-sum-exp of its
-    masked scores (:func:`_masked_scores`): ``(o, lse)``, lse ``(B, H, Sq)``
-    float32 (float64 for float64 inputs), natural log. The forward of the
-    training path; the backward rebuilds ``P = exp(s - lse)`` from it."""
+    """:func:`flash_attention_ref` with each row's log-sum-exp of its
+    masked scores (:func:`_masked_scores`) and the output before its
+    rounding: ``(o, lse, o_wide)``, lse ``(B, H, Sq)`` and ``o_wide`` in
+    float32 (float64 for float64 inputs; ``o`` itself unless the inputs are
+    bf16), lse in natural log. The forward of the training path; the
+    backward rebuilds ``P = exp(s - lse)`` from lse and takes ``Delta =
+    rowsum(dO * o_wide)``."""
     B, H, Sq, hd = q.shape
     s = _masked_scores(q, k, causal=causal, window=window, softcap=softcap,
                       q_offset=q_offset, kv_len=kv_len)
     p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bkgqs,bksd->bkgqd", p, v.to(s.dtype))
-    o = o.reshape(B, H, Sq, hd).to(q.dtype)
+    wide = torch.einsum("bkgqs,bksd->bkgqd", p, v.to(s.dtype))
+    wide = wide.reshape(B, H, Sq, hd)
+    o = wide.to(q.dtype)
     if not with_lse:
         return o
-    return o, torch.logsumexp(s, dim=-1).reshape(B, H, Sq)
+    return o, torch.logsumexp(s, dim=-1).reshape(B, H, Sq), wide
 
 
 def flash_attention_split_ref(q: torch.Tensor, k: torch.Tensor,

@@ -230,9 +230,11 @@ def _check(q, k, v, o, lse, do) -> None:
         raise ValueError("flash_attention_bwd: lse must be a contiguous "
                          f"float32 (B, H, Sq) tensor on {q.device}")
     for label, t in (("q", q), ("k", k), ("v", v), ("o", o), ("do", do)):
-        if t.device != q.device or t.dtype != q.dtype:
+        # o is the forward's float32 output before its rounding
+        want = torch.float32 if label == "o" else q.dtype
+        if t.device != q.device or t.dtype != want:
             raise ValueError(f"flash_attention_bwd: {label} must be "
-                             f"{q.dtype} on {q.device}")
+                             f"{want} on {q.device}")
         # bf16 rows are copied by TMA: 16-byte aligned base and strides
         if t.stride(3) != 1 or t.data_ptr() % 16 or any(
                 s % (16 // t.element_size()) for s in t.stride()[:3]):
@@ -257,7 +259,11 @@ def flash_attention_bwd_kernel(q: torch.Tensor, k: torch.Tensor,
     the plan's tile table on a shape's first call, which waits for its copy
     to the card (no later call synchronises); the kernels allocate nothing.
     Deterministic: the same inputs give bit-equal gradients. Float32 takes
-    the CUDA-core route, which needs no plan."""
+    the CUDA-core route, which needs no plan. ``o`` is float32 whatever the
+    inputs' dtype: the forward's output before its rounding (the third
+    value of ``flash_attention_kernel(..., with_lse=True)``), from which
+    ``Delta = rowsum(dO * O)`` is exact, where a bf16 O rounds away ``dP -
+    Delta`` of rows whose values nearly agree."""
     _check(q, k, v, o, lse, do)
     if window is not None and window < 1:
         raise ValueError(f"flash_attention_bwd: window {window} < 1")

@@ -1,8 +1,9 @@
 """Plain PyTorch version of the flash attention backward
 (``csrc/flash_attention_bwd.cu``).
 
-From the forward's inputs, its output ``o`` and its per-row log-sum-exp
-``lse`` (:func:`repro_torch.kernels.flash_attention.flash_attention_lse_ref`)
+From the forward's inputs, its output ``o`` before its rounding (float32
+for bf16 inputs) and its per-row log-sum-exp ``lse`` (both from
+:func:`repro_torch.kernels.flash_attention.flash_attention_lse_ref`)
 and the output's gradient ``do``: the scores ``s`` are recomputed, ``P =
 exp(s - lse)`` on the keys a query may see, and
 

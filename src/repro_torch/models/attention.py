@@ -47,15 +47,17 @@ def attention_decode(q: torch.Tensor, k_cache: torch.Tensor,
 
 
 def attention_train(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    window: int | None = None, softcap: float | None = None,
+                    causal: bool = True, window: int | None = None,
+                    softcap: float | None = None,
                     backend: str = "auto") -> torch.Tensor:
-    """Causal attention of the training path, differentiable: the same
-    views as :func:`attention_blockwise`, through
-    :class:`~repro_torch.kernels.flash_attention.FlashAttentionFn` (the CUDA
-    forward and backward kernels on CUDA tensors). The gradients come back
-    as views of ``(B, S, heads, hd)`` storage, so the head split and merge
-    stay free. Returns (B, S, H, hd)."""
+    """Attention of the training path, differentiable: causal by default;
+    ``causal=False`` for the encoder and for cross-attention, where Sq may
+    differ from Skv. The same views as :func:`attention_blockwise`,
+    through :class:`~repro_torch.kernels.flash_attention.FlashAttentionFn`
+    (the CUDA forward and backward kernels on CUDA tensors). The gradients
+    come back as views of ``(B, S, heads, hd)`` storage, so the head split
+    and merge stay free. Returns (B, Sq, H, hd)."""
     o = flash_attention_train(q.transpose(1, 2), k.transpose(1, 2),
-                              v.transpose(1, 2), causal=True, window=window,
+                              v.transpose(1, 2), causal=causal, window=window,
                               softcap=softcap, backend=backend)
     return o.transpose(1, 2)

@@ -7,7 +7,8 @@ stack over those frames (non-causal MHA); the decoder is causal
 self-attention, then cross-attention over the encoder's output. LayerNorm,
 GELU and biases, per the published architecture; ``wk`` has no bias. Every
 attention call goes through the flash attention op
-(:func:`.attention.attention_blockwise`, :func:`.attention.attention_decode`).
+(:func:`.attention.attention_blockwise`, :func:`.attention.attention_decode`,
+:func:`.attention.attention_train`).
 
 Layout: the reference's stacked ``enc_blocks`` / ``dec_blocks`` are lists
 of per-layer blocks here, and the caches ``self_k``, ``self_v``,
@@ -22,10 +23,14 @@ counterpart.
 Shape convention, as the reference's: for S encoder frames the decoder has
 S // 8 positions (``DEC_RATIO``).
 
-The forward kernel has no backward on this path yet: a call that would
-need gradients through it on the card raises (training the
-encoder-decoder is ROADMAP queue 1); the plain route (CPU tensors, or
-``backend="plain"``) is differentiable.
+Training: where a gradient is wanted, every attention call goes through
+:func:`.attention.attention_train` (the forward with lse and
+``flash_attention_bwd`` on the card, their plain versions on the CPU or
+with ``backend="plain"``): the encoder and the cross-attention
+non-causal, the decoder's self-attention causal. The cross-attention's
+K and V gradients flow into the encoder's output, so the encoder trains
+through them. Under ``remat`` each block is checkpointed, as the
+reference's scan body.
 """
 
 from __future__ import annotations
@@ -34,7 +39,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
-from .attention import attention_blockwise, attention_decode
+from .attention import attention_blockwise, attention_decode, attention_train
 from .common import layer_norm, normal_init
 from .mlp import gelu_mlp, init_gelu_mlp
 
@@ -105,14 +110,10 @@ def _mha_qkv(cfg: ArchConfig, p: dict, xq: torch.Tensor, xkv: torch.Tensor):
 
 def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             causal: bool, backend: str) -> torch.Tensor:
-    """Full-sequence attention through the forward op. Raises where the
-    result would need a gradient through the CUDA kernel, which has none
-    here."""
-    if (torch.is_grad_enabled() and q.is_cuda and backend != "plain"
-            and any(t.requires_grad for t in (q, k, v))):
-        raise NotImplementedError(
-            "training the encoder-decoder (whisper) on the card is not "
-            "ported to repro_torch yet (ROADMAP queue 1)")
+    """Full-sequence attention: differentiable (:func:`attention_train`)
+    where a gradient is wanted, the forward alone otherwise."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return attention_train(q, k, v, causal=causal, backend=backend)
     return attention_blockwise(q, k, v, causal=causal, backend=backend)
 
 

@@ -17,10 +17,10 @@ Decoder-only models with ``attn``, ``attn_local``, ``shared_attn``,
 ``mamba1`` and ``mamba2`` blocks and dense or MoE feed-forwards, each
 served and trained on the card through its hand-written kernels (Mamba-2's
 SSD form has none in the reference and stays plain PyTorch), in bf16 or
-float32. The encoder-decoder (whisper, :mod:`.encdec`) and the VLM front
-end (a stub, as the reference's: patch embeddings overwrite the first
-positions) are served; training them on the card is ROADMAP queue 1 (the
-training entry points refuse them). On one card there is no activation
+float32. The encoder-decoder (whisper, :mod:`.encdec`: the encoder and
+the cross-attention non-causal) and the VLM front end (a stub, as the
+reference's: patch embeddings overwrite the first positions) are served
+and trained the same way. On one card there is no activation
 sharding, so the reference's ``shardctx.anchor_batch`` has no counterpart.
 """
 

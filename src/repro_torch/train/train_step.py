@@ -38,15 +38,11 @@ class TrainConfig:
 
 
 def check_trainable(cfg: ArchConfig) -> None:
-    """Raise ``NotImplementedError`` for a config the port serves but does
-    not train on the card yet: the encoder-decoder (whisper) and the VLM
-    front end (ROADMAP queue 1); else :func:`check_config`'s refusals."""
+    """Raise ``NotImplementedError`` for a config the port does not train:
+    :func:`check_config`'s refusals (a block kind or activation it does
+    not know). The encoder-decoder (``enc_dec``) and the VLM front end
+    (``vision_tokens``) train like every other family."""
     check_config(cfg)
-    for flag, what in (("enc_dec", "the encoder-decoder (whisper) path"),
-                       ("vision_tokens", "the VLM front end")):
-        if getattr(cfg, flag):
-            raise NotImplementedError(f"training {what} is not ported to "
-                                      "repro_torch yet (ROADMAP queue 1)")
 
 
 def micro_loss(cfg: ArchConfig, tcfg: TrainConfig, params: dict,
@@ -71,7 +67,8 @@ def micro_loss(cfg: ArchConfig, tcfg: TrainConfig, params: dict,
 
 
 def _split_micro(batch: dict, n: int) -> list[dict]:
-    """(B, ...) -> n microbatches of B / n rows."""
+    """(B, ...) -> n microbatches of B / n rows, every key alike
+    (``tokens``, ``labels``, and ``frames`` or ``vision_embeds``)."""
     out = [{} for _ in range(n)]
     for key, x in batch.items():
         b = x.shape[0]
@@ -117,7 +114,9 @@ def grad_fn(cfg: ArchConfig, tcfg: TrainConfig, params: dict, batch: dict,
 def make_train_step(cfg: ArchConfig, tcfg: TrainConfig):
     """Returns train_step(params, opt_state, batch) -> (params, state,
     metrics); ``batch`` holds (B, S) ``tokens`` and ``labels`` tensors on
-    the parameters' device. Raises for a config :func:`check_trainable`
+    the parameters' device, plus ``frames`` for the encoder-decoder and
+    ``vision_embeds`` for a VLM (``repro_torch.launch.train
+    .family_batch``). Raises for a config :func:`check_trainable`
     refuses."""
     check_trainable(cfg)
 

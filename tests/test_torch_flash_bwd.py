@@ -57,7 +57,8 @@ def test_bwd_ref_is_the_exact_gradient_float64(B, H, KV, S, hd, window,
     kw = dict(causal=True, window=window, softcap=softcap)
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
     flash_attention_ref(*leaves, **kw).backward(do)
-    o, lse = flash_attention_lse_ref(q, k, v, **kw)
+    o, lse, wide = flash_attention_lse_ref(q, k, v, **kw)
+    assert wide is o
     assert lse.dtype == torch.float64
     got = flash_attention_bwd_ref(q, k, v, o, lse, do, **kw)
     for g, leaf in zip(got, leaves):
@@ -104,7 +105,7 @@ def test_flash_attention_fn_gradcheck(window, softcap):
 def test_non_tensor_arguments_get_no_gradient():
     q, k, v, do = (torch.tensor(a).transpose(1, 2)
                    for a in _draw(3, 1, 2, 1, 6, 8))
-    o, lse = flash_attention_lse_ref(q, k, v)
+    o, lse, _ = flash_attention_lse_ref(q, k, v)
     ctx = types.SimpleNamespace(saved_tensors=(q, k, v, o, lse),
                                 kw={"causal": True}, plain=True)
     grads = FlashAttentionFn.backward(ctx, do)
@@ -116,14 +117,16 @@ def test_non_tensor_arguments_get_no_gradient():
 @pytest.mark.parametrize(IDS, CASES[:2])
 def test_bf16_rounding_convention(B, H, KV, S, hd, window, softcap):
     """bf16 inputs: P and dS are rounded to bf16 before their products;
-    the gradients stay within the bf16 tolerance of the float32 ones."""
+    the gradients (Delta from the forward's float32 output, as the training
+    path keeps it) stay within the bf16 tolerance of the float32 ones."""
     arrays = _draw(4, B, H, KV, S, hd, np.float32)
     kw = dict(causal=True, window=window, softcap=softcap)
     bf = [torch.tensor(a).bfloat16().transpose(1, 2) for a in arrays]
     f32 = [t.float() for t in bf]
-    o, lse = flash_attention_lse_ref(*bf[:3], **kw)
+    _, lse, o = flash_attention_lse_ref(*bf[:3], **kw)
+    assert o.dtype == torch.float32
     got = flash_attention_bwd_ref(*bf[:3], o, lse, bf[3], **kw)
-    o32, lse32 = flash_attention_lse_ref(*f32[:3], **kw)
+    o32, lse32, _ = flash_attention_lse_ref(*f32[:3], **kw)
     want = flash_attention_bwd_ref(*f32[:3], o32, lse32, f32[3], **kw)
     for g, w in zip(got, want):
         assert g.dtype == torch.bfloat16

@@ -222,7 +222,7 @@ def _inputs(seed, B, H, KV, Sq, Skv, hd, kw):
     t = lambda *s: torch.tensor(rng.standard_normal(s))  # noqa: E731
     q, k, v, do = t(B, H, Sq, hd), t(B, KV, Skv, hd), t(B, KV, Skv, hd), \
         t(B, H, Sq, hd)
-    o, lse = flash_attention_lse_ref(q, k, v, **kw)
+    o, lse, _ = flash_attention_lse_ref(q, k, v, **kw)
     return q, k, v, o, lse, do
 
 
@@ -361,8 +361,11 @@ def test_table_is_copied_once_a_shape():
 def test_audit_budget_counts_the_scratch():
     """``FLASH_ATTENTION_BWD_SPEC.budget_bytes`` at its audit shape (B 1,
     H 4, KV 2, S 256, hd 64): the 800,000 B of the design without a tile
-    table, plus the table's bytes and nothing else."""
+    table and with a bf16 o, plus the other half of o's bytes (the backward
+    reads the forward's float32 output), plus the table's bytes and nothing
+    else."""
     plan = _plan(1, 4, 2, 256, 256, 64, None, 0, None)
     delta = 4 * 1 * 4 * 256
     assert plan.scratch_bytes - delta == 4 * 3 * (4 + 8) == 144
-    assert FLASH_ATTENTION_BWD_SPEC.budget_bytes == 800_000 + 144
+    o_widened = (4 - 2) * 1 * 4 * 256 * 64
+    assert FLASH_ATTENTION_BWD_SPEC.budget_bytes == 800_000 + o_widened + 144

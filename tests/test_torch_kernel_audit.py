@@ -139,16 +139,17 @@ def test_plain_versions_match_reference_oracles(name, small):
 
 
 def test_bwd_spec_and_inputs():
-    """flash_attention_bwd's own SPEC: a model kernel on bf16 q, k, v, o,
-    dO and the float32 lse of the plain forward; its plain version at the
-    audit inputs is the float64 gradient within the bf16 tolerance."""
+    """flash_attention_bwd's own SPEC: a model kernel on bf16 q, k, v and
+    dO, and the float32 o (before its rounding) and lse of the plain
+    forward; its plain version at the audit inputs is the float64 gradient
+    within the bf16 tolerance."""
     from repro_torch.kernels.flash_attention import flash_attention_ref
 
     spec = get_kernel_spec("flash_attention_bwd")
     case = spec.make_inputs("cpu")
     assert spec.domain == "model" and spec.multi_output and spec.tol == 2e-2
-    assert [t.dtype for t in case.operands] == [torch.bfloat16] * 4 + [
-        torch.float32, torch.bfloat16]
+    assert [t.dtype for t in case.operands] == [torch.bfloat16] * 3 + [
+        torch.float32, torch.float32, torch.bfloat16]
     q, k, v, o, lse, do = case.operands
     assert lse.shape == q.shape[:3]
     in_out = sum(t.numel() * t.element_size() for t in case.operands)

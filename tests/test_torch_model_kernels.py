@@ -552,13 +552,13 @@ def test_cuda_scan_streams_like_one_call():
 def _bwd_inputs(seed, B, H, KV, Sq, Skv, hd, kw, device="cpu",
                 dtype="bfloat16"):
     """q, k, v (contiguous) and dO (the model's (B, Sq, H, hd) storage
-    seen as (B, H, Sq, hd)) in ``dtype``; o and lse from the plain
-    forward."""
+    seen as (B, H, Sq, hd)) in ``dtype``; o (float32, before its rounding:
+    what the backward reads) and lse from the plain forward."""
     q, k, v = _qkv(seed, B, H, KV, Sq, Skv, hd, dtype, device)
     rng = np.random.default_rng(seed + 1)
     do = torch.tensor(rng.standard_normal((B, Sq, H, hd), np.float32),
                       device=device).to(getattr(torch, dtype)).transpose(1, 2)
-    o, lse = flash_attention_lse_ref(q, k, v, **kw)
+    _, lse, o = flash_attention_lse_ref(q, k, v, **kw)
     return q, k, v, o, lse, do
 
 
@@ -633,19 +633,20 @@ LSE_CASES = PREFILL + [(1, 4, 1, 2, 2, 64, None, None, 0, None),
 @pytest.mark.parametrize(PREFILL_IDS, LSE_CASES)
 def test_cuda_attention_lse_matches_plain(B, H, KV, Sq, Skv, hd, window,
                                           softcap, q_offset, kv_len, dtype):
-    """The forward's log-sum-exp (both prefill routes; a call of decode
-    size takes a prefill route when it asks for lse)."""
+    """The forward's log-sum-exp and its output before the rounding (both
+    prefill routes; a call of decode size takes a prefill route when it
+    asks for lse)."""
     dev = _card()
     q, k, v = _qkv(B * Sq + hd, B, H, KV, Sq, Skv, hd, dtype, dev)
     kw = dict(causal=True, window=window, softcap=softcap, q_offset=q_offset,
               kv_len=kv_len)
-    o, lse = flash_attention_kernel(q, k, v, with_lse=True, **kw)
-    ro, rlse = flash_attention_lse_ref(q, k, v, **kw)
+    o, lse, o32 = flash_attention_kernel(q, k, v, with_lse=True, **kw)
+    ro, rlse, ro32 = flash_attention_lse_ref(q, k, v, **kw)
     assert lse.dtype == torch.float32 and lse.shape == (B, H, Sq)
-    np.testing.assert_allclose(_f32(o), _f32(ro), atol=TOL[dtype],
-                               rtol=TOL[dtype])
-    np.testing.assert_allclose(_f32(lse), _f32(rlse), atol=TOL[dtype],
-                               rtol=TOL[dtype])
+    assert o32.dtype == torch.float32 and o32.stride() == o.stride()
+    for got, want in ((o, ro), (lse, rlse), (o32, ro32)):
+        np.testing.assert_allclose(_f32(got), _f32(want), atol=TOL[dtype],
+                                   rtol=TOL[dtype])
 
 
 @pytest.mark.gpu
@@ -680,6 +681,51 @@ def test_cuda_flash_autograd_matches_plain(window, softcap):
             assert g.dtype == dtype
             np.testing.assert_allclose(_f32(g), _f32(want), atol=TOL[name],
                                        rtol=TOL[name])
+
+
+#: the backward at the training calls of the encoder-decoder and the VLM
+#: (``chip_smoke.py`` phase 17 (a)): whisper-large-v3's encoder layer
+#: (1,500 frames, not a multiple of 64, non-causal), its cross-attention
+#: (187 decoder positions on 1,500 keys, non-causal) and its decoder's
+#: self-attention (187, causal); internvl2-2b's layer (H 16 on KV 8)
+ENCDEC_BWD_IDS = "B,H,KV,Sq,Skv,hd,causal"
+ENCDEC_BWD = [
+    (4, 20, 20, 1500, 1500, 64, False),
+    (4, 20, 20, 187, 1500, 64, False),
+    (4, 20, 20, 187, 187, 64, True),
+    (4, 16, 8, 1024, 1024, 128, True),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize(ENCDEC_BWD_IDS, ENCDEC_BWD)
+def test_cuda_attention_encdec_bwd(B, H, KV, Sq, Skv, hd, causal, dtype):
+    """The training path's calls in the model's strided layout: the
+    forward with lse and its float32 output against the plain forward,
+    then the backward reading that float32 output against the plain
+    backward on the same inputs at ``TOL``; two calls bit-equal."""
+    dev = _card()
+    kw = dict(causal=causal)
+    q, k, v = (t.transpose(1, 2).contiguous().transpose(1, 2) for t in
+               _qkv(Sq + Skv + hd + 3, B, H, KV, Sq, Skv, hd, dtype, dev))
+    rng = np.random.default_rng(Sq + hd)
+    do = torch.tensor(rng.standard_normal((B, Sq, H, hd), np.float32),
+                      device=dev).to(q.dtype).transpose(1, 2)
+    o, lse, o32 = flash_attention_kernel(q, k, v, with_lse=True, **kw)
+    assert o32.dtype == torch.float32 and o32.stride() == o.stride()
+    want_o, want_lse, want_o32 = flash_attention_lse_ref(q, k, v, **kw)
+    tol = TOL[dtype]
+    for got, want in ((o, want_o), (o32, want_o32), (lse, want_lse)):
+        np.testing.assert_allclose(_f32(got), _f32(want), atol=tol, rtol=tol)
+    want = flash_attention_bwd_ref(q, k, v, o32, lse, do, **kw)
+    got = [t.clone() for t in
+           flash_attention_bwd_kernel(q, k, v, o32, lse, do, **kw)]
+    again = flash_attention_bwd_kernel(q, k, v, o32, lse, do, **kw)
+    for g, a, w in zip(got, again, want):
+        assert g.shape == w.shape and g.dtype == q.dtype
+        np.testing.assert_allclose(_f32(g), _f32(w), atol=tol, rtol=tol)
+        assert torch.equal(g, a)
 
 
 #: the float32 backward: every head dim, causal and not, window, softcap,

@@ -273,14 +273,13 @@ def test_moe_param_counts(arch, total, active):
 
 @pytest.mark.parametrize("arch", MOE_ARCHS)
 def test_moe_configs_pass_check_config(arch):
-    """The MoE configs are served and trained; the training step still
-    refuses the encoder-decoder flag
+    """The MoE configs are served and trained; the training step accepts
+    the encoder-decoder flag too
     (``test_torch_serve.py::test_unported_paths_raise``)."""
     cfg = get_config(arch)
     check_config(cfg)
     check_trainable(cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-        check_trainable(dataclasses.replace(cfg, enc_dec=True))
+    check_trainable(dataclasses.replace(cfg, enc_dec=True))
     p = M.init_params(cfg.reduced(), seed=0, device="cpu")
     block = p["groups"][0]["b0"]
     assert "mlp" not in block and set(block["moe"]) == (

@@ -79,7 +79,9 @@ def _as_torch(batch):
 
 def _pairs(cfg, port, ref):
     """(name, port leaf, reference leaf as numpy) for every leaf; the
-    reference's stacked group leaves are split per group."""
+    reference's stacked group leaves are split per group, and the
+    encoder-decoder's stacked ``enc_blocks`` and ``dec_blocks`` per
+    layer."""
     ref = jax.tree.map(np.asarray, ref)
     out = []
 
@@ -93,12 +95,14 @@ def _pairs(cfg, port, ref):
         else:
             out.append((name, p, np.asarray(r, np.float32)))
 
+    stacked = {"groups": cfg.n_groups, "enc_blocks": cfg.n_encoder_layers,
+               "dec_blocks": cfg.n_layers}
     for key in ref:
-        if key == "groups":
-            for g in range(cfg.n_groups):
-                walk(port["groups"][g],
-                     jax.tree.map(lambda a, g=g: a[g], ref["groups"]),
-                     f"groups/{g}")
+        if key in stacked:
+            for g in range(stacked[key]):
+                walk(port[key][g],
+                     jax.tree.map(lambda a, g=g: a[g], ref[key]),
+                     f"{key}/{g}")
         else:
             walk(port[key], ref[key], key)
     return out
@@ -287,18 +291,15 @@ def test_launcher_compress_grads_checkpoints_the_error_feedback(capsys,
 
 @pytest.mark.parametrize("arch", sorted(arch_ids()))
 def test_one_step_is_finite_for_every_config(arch):
-    """Every config the port trains takes one finite step; the
-    encoder-decoder and the VLM front end, served but not trained yet,
-    are refused (ROADMAP queue 1)."""
+    """Every config takes one finite step, the encoder-decoder (24
+    frames, 3 decoder tokens) and the VLM front end (8 patch embeddings)
+    on the launcher's family batch among them."""
     cfg = get_config(arch).reduced()
     p = M.init_params(cfg, seed=0, device="cpu")
     tcfg = TrainConfig(opt=OptimizerConfig(warmup_steps=1))
-    if cfg.enc_dec or cfg.vision_tokens:
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-            make_train_step(cfg, tcfg)
-        return
     step = make_train_step(cfg, tcfg)
-    new, state, m = step(p, init_opt_state(p), _as_torch(_batch(cfg, s=24)))
+    batch = launch_train.family_batch(cfg, _batch(cfg, s=24), device="cpu")
+    new, state, m = step(p, init_opt_state(p), batch)
     assert np.isfinite(float(m["loss"])) and float(m["grad_norm"]) > 0
     for t in tree_leaves(new) + tree_leaves(state["m"]):
         assert bool(torch.isfinite(t.float()).all())

@@ -99,7 +99,7 @@ def test_layout_and_check_config():
     """The shared block lives once, at ``params["shared_attn"]``; the
     groups hold the six mamba2 blocks; the caches hold a KV slot for each
     application; the config builds with a GELU MLP, and the training
-    step refuses the encoder-decoder and VLM flags (ROADMAP queue 1)."""
+    step accepts the encoder-decoder and VLM flags."""
     for depth in DEPTHS:
         cfg, jcfg, jp, p = _reference("float32", depth)
         assert set(p) == set(jp) == {"embed", "groups", "rest", "final_norm",
@@ -121,8 +121,7 @@ def test_layout_and_check_config():
     check_config(full)
     check_config(dataclasses.replace(full, act="gelu"))
     for replace in (dict(enc_dec=True), dict(vision_tokens=8)):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-            check_trainable(dataclasses.replace(full, **replace))
+        check_trainable(dataclasses.replace(full, **replace))
 
 
 def test_param_counts_match_reference():
