@@ -233,7 +233,25 @@ Phases, each raising on failure (the script then exits non-zero):
    internvl2-2b's phase 9 run, then one ``model.prefill`` with 256 patch
    embeddings a request from the seed (``phase_vlm_prefill``), kernels
    against the plain route by the same rules, its logits moved off the
-   text-only prefill's by more than the bf16 tolerance.
+   text-only prefill's by more than the bf16 tolerance;
+18. the mesh (``phase_mesh``): a (1, 1) ``DeviceMesh`` over NCCL at world
+   size 1, from an in-process ``HashStore``; (a) gemma3-1b's parameters
+   at full width and depth written to a checkpoint, restored and placed
+   by ``reshard_for_mesh`` with the parameter rules, each leaf's
+   ``full_tensor()`` bit-equal to the restored leaf; (b) its first
+   training step at ``TRAIN_B`` x ``TRAIN_S`` on DTensor parameters,
+   optimizer state and batch through ``make_train_step(mesh=...)``'s
+   pinned gradient: ``flash_attention`` and ``flash_attention_bwd``
+   launched as in 12 (b)'s first step and nothing else, the loss and
+   every gradient leaf within ``TRAIN_TOL`` of the step without a mesh
+   (the largest difference printed), then whole steps timed with
+   ``max_memory_allocated``; (c) ``repro_torch.launch.dryrun`` of the
+   same cell on a (1, 1) fake mesh, in a subprocess started before (a):
+   its FLOPs (aten products plus the kernel formulas) within
+   ``MESH_FLOPS_TOL`` of one profiled step's (``torch.profiler``
+   ``with_flops`` over ``PROFILED_PRODUCTS`` plus the same formulas over
+   the kernels launched, ``kernel_work``), its peak within
+   ``MESH_PEAK_RATIO`` of the measured one.
 
 The launch counts of each path are reset just before it runs and read just
 after. The second-to-last line is the kernel summary as JSON; the last line
@@ -493,10 +511,29 @@ SCAN_BWD_FIRST = os.path.join(ROOT, "dev", "scan_bwd_first")
 #: exponentials in the SASS of each reverse walk: one a state (4 a thread)
 #: a step of its unrolled 16-step round
 SCAN_BWD_EX2 = 16 * 4
-HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
-FP64_FLOPS = 34e12            # H100 SXM float64, outside the tensor cores
-BF16_FLOPS = 989e12           # H100 SXM bf16, dense tensor cores
-FP32_FLOPS = 67e12            # H100 SXM float32, outside the tensor cores
+
+
+def _port_module(name: str):
+    """A module of the port beside this script (``src/``), unless one is
+    importable already (an older checkout's ``src`` placed first)."""
+    import importlib
+    import importlib.util
+
+    if importlib.util.find_spec("repro_torch") is None:
+        sys.path.append(os.path.join(ROOT, "src"))
+    return importlib.import_module(name)
+
+
+#: the H100 SXM figures of the port's roofline (one set for the repository)
+_H100 = _port_module("repro_torch.launch.roofline")
+HBM_BYTES_PER_S = _H100.HBM_BW          # HBM3
+FP64_FLOPS = _H100.FP64_FLOPS           # float64, outside the tensor cores
+BF16_FLOPS = _H100.BF16_FLOPS           # bf16, dense tensor cores
+FP32_FLOPS = _H100.FP32_FLOPS           # float32, outside the tensor cores
+#: the work formulas of the scan's forward and backward (their packages')
+scan_work = _port_module("repro_torch.kernels.selective_scan.work").scan_work
+scan_bwd_work = _port_module(
+    "repro_torch.kernels.selective_scan_bwd.work").scan_bwd_work
 #: exponentials a second on the special-function units: 16 a clock per SM,
 #: 132 SMs, at the clock the float32 figure assumes (67e12 / (132 x 256))
 SFU_EXPS = 4.18e12
@@ -1618,18 +1655,6 @@ def roofline(bytes_: float, flops: float, peak: float,
     return 1e3 * terms[term], term
 
 
-def scan_work(Bz: int, S: int, Di: int, N: int) -> tuple[int, int, int]:
-    """Bytes, float32 operations and exponentials of one scan call on
-    float32 streams: x, dt, y per (b, t, d); B, C per (b, t, n); A per
-    (d, n), D per d; h0, h_last per (b, d, n). Per (b, t, d, n) one
-    exponential and six operations (dt * A, its product with h, dx * B,
-    their sum, h * C and its sum into y); per (b, t, d) three more (dt * x,
-    D * x and its sum into y)."""
-    bytes_ = 4 * (3 * Bz * S * Di + 2 * Bz * S * N + Di * N + Di
-                  + 2 * Bz * Di * N)
-    return bytes_, 6 * Bz * S * Di * N + 3 * Bz * S * Di, Bz * S * Di * N
-
-
 def _model_record(name, kern, plain, library, err, tol, bytes_, flops,
                   peak, plain_calls, exps: float = 0, ms=None,
                   reps: dict | None = None) -> dict:
@@ -1700,6 +1725,7 @@ def _attn_case(dev, rng, name: str, dtype: str, B: int, H: int, KV: int,
                                                      flash_attention_kernel,
                                                      flash_attention_ref,
                                                      plan_launch)
+    from repro_torch.kernels.flash_attention.work import attention_work
 
     dt = getattr(torch, dtype)
     t = lambda *s: torch.tensor(  # noqa: E731
@@ -1722,11 +1748,10 @@ def _attn_case(dev, rng, name: str, dtype: str, B: int, H: int, KV: int,
                           flash_attention_ref(q, k, v, **kw), TOL[dtype])
     mask = attention_mask(sq, skv, causal=causal, window=window,
                           q_offset=q_offset, kv_len=kv_len, device=dev)
-    pairs = int(mask.sum())
-    needed = int(mask.any(0).sum())          # keys some query reads
-    size = q.element_size()
-    bytes_ = size * (2 * B * H * sq * hd + 2 * B * KV * needed * hd)
-    flops = 4 * B * H * hd * pairs
+    bytes_, flops = attention_work(B, H, KV, hd, sq, skv,
+                                   size=q.element_size(), causal=causal,
+                                   window=window, q_offset=q_offset,
+                                   kv_len=kv_len)
     library = None
     if cap is None:     # no PyTorch call takes a softcap
         qc, kc, vc = (x.contiguous() for x in (q, k, v))
@@ -2242,6 +2267,7 @@ def phase_train_kernels(dev, cases=BWD_CASES, phase: str = "12 (a)"
     from repro_torch.kernels.flash_attention import (attention_mask,
                                                      flash_attention_kernel,
                                                      flash_attention_lse_ref)
+    from repro_torch.kernels.flash_attention.work import attention_bwd_work
     from repro_torch.kernels.flash_attention_bwd import (
         flash_attention_bwd_kernel, flash_attention_bwd_ref)
 
@@ -2314,14 +2340,12 @@ def phase_train_kernels(dev, cases=BWD_CASES, phase: str = "12 (a)"
         del f32, o32, want, got
         mask = attention_mask(S, Skv, causal=causal, window=window,
                               q_offset=0, kv_len=None, device=dev)
-        pairs = int(mask.sum())
-        flops = 2.5 * 4 * B * H * pairs * hd
         # q, do, dq and k, v, dk, dv once each in their dtype, o and lse in
         # float32; bf16 products on the tensor cores, float32 ones on the
         # CUDA cores
-        bytes_ = (q.element_size() * (3 * B * H * S * hd
-                                      + 4 * B * KV * Skv * hd)
-                  + o_k.element_size() * B * H * S * hd + 4 * B * H * S)
+        bytes_, flops = attention_bwd_work(
+            B, H, KV, hd, S, Skv, size=q.element_size(),
+            o_size=o_k.element_size(), causal=causal, window=window)
         bound_ms, term = roofline(bytes_, flops,
                                   BF16_FLOPS if bf16 else FP32_FLOPS)
         # the float32 route takes milliseconds a call: fewer timed calls
@@ -2413,21 +2437,6 @@ def phase_train_kernels(dev, cases=BWD_CASES, phase: str = "12 (a)"
     print(f"[train-kernels] phase {phase} wall_s="
           f"{time.perf_counter() - t_phase!r}")
     return {"flash_attention_bwd": out}
-
-
-def scan_bwd_work(Bz: int, S: int, Di: int, N: int,
-                  size: int) -> tuple[int, int, int]:
-    """Bytes, float32 operations and exponentials the scan's backward must
-    spend: each input read once and each output written once (x, dt, dy,
-    dx, ddt per (b, t, d) in the streams' ``size``; B, C, dB, dC per
-    (b, t, n); A, dA per (d, n), D, dD per d and h0, dh_last, dh0 per
-    (b, d, n) in float32; the forward's round states are the kernel's own
-    and not counted). Per (b, t, d, n) one exponential, 5 operations to
-    recompute h and dC's term and 13 for g, its products and the
-    carry."""
-    bytes_ = (size * (5 * Bz * S * Di + 4 * Bz * S * N)
-              + 4 * (2 * Di * N + 2 * Di + 3 * Bz * Di * N))
-    return bytes_, 18 * Bz * S * Di * N, Bz * S * Di * N
 
 
 def start_first_scan_bwd() -> tuple:
@@ -2691,10 +2700,11 @@ def _train_run(dev, cfg, phase: str, kernels: tuple, seq: int = TRAIN_S,
     if moe and tol_f32 is None:
         tol_f32 = TRAIN_TOL
     hold_f32 = tol_f32 is not None
-    routes = {}
+    routes, nll = {}, {}
     with contextlib.ExitStack() as watching:
         if moe:
             routes["auto"] = watching.enter_context(watch_routes()).calls
+        nll["kernels"] = watching.enter_context(watch_nll())
         _cuda.reset_launches()
         lk, mk, gk = grad_fn(cfg, run["tcfg"], params, b, backend="auto")
         lk = float(lk)
@@ -2702,6 +2712,7 @@ def _train_run(dev, cfg, phase: str, kernels: tuple, seq: int = TRAIN_S,
     with contextlib.ExitStack() as watching:
         if moe:
             routes["plain"] = watching.enter_context(watch_routes()).calls
+        nll["plain"] = watching.enter_context(watch_nll())
         lp, mp, gp = grad_fn(cfg, run["tcfg"], params, b, backend="plain")
         lp = float(lp)
     if hold_launches[bwd_name] != layers or any(
@@ -2709,13 +2720,16 @@ def _train_run(dev, cfg, phase: str, kernels: tuple, seq: int = TRAIN_S,
         raise AssertionError(f"first step launches {hold_launches}, plain "
                              f"route {_cuda.LAUNCHES}")
     p32 = tree_map(lambda t: t.float(), params)
-    l32, m32, g32 = grad_fn(cfg, run["tcfg"], p32, b, backend="plain")
+    with watch_nll() as nll["plain f32"]:
+        l32, m32, g32 = grad_fn(cfg, run["tcfg"], p32, b, backend="plain")
     l32 = float(l32)
     if hold_f32:
         # the first step also in float32, kernels against plain: the
         # float32 backward runs (and routes rarely flip)
         _cuda.reset_launches()
-        lk32, mk32, gk32 = grad_fn(cfg, run["tcfg"], p32, b, backend="auto")
+        with watch_nll() as nll["kernels f32"]:
+            lk32, mk32, gk32 = grad_fn(cfg, run["tcfg"], p32, b,
+                                       backend="auto")
         lk32 = float(lk32)
         if _cuda.LAUNCHES[bwd_name] != layers:
             raise AssertionError(f"float32 first step launches "
@@ -2783,6 +2797,11 @@ def _train_run(dev, cfg, phase: str, kernels: tuple, seq: int = TRAIN_S,
              f"{max(err[i] for i in rest)!r}; leaves held to 2 x the plain "
              f"bf16 route's distance from f32 (kernels vs plain, tol): "
              f"{ {names[i]: (err[i], tols[i]) for i in moved} }"))
+    print(f"[train] {cfg.name} first step, the loss's parts by route "
+          "(the final hidden state's and the head's dtypes, the summed "
+          "token NLL over its count): "
+          + "; ".join(f"{route} {w.summary()}" for route, w in nll.items())
+          + f"; loss kernels={lk!r} plain={lp!r} plain f32={l32!r}")
     ok = (loss_err <= TRAIN_TOL and held[worst] <= tols[worst]
           and (aux_err is None or aux_err <= TRAIN_TOL))
     first32 = None
@@ -3025,6 +3044,49 @@ class watch_routes:
     def __exit__(self, *exc):
         self._moe.route = self._route
         return False
+
+
+class watch_nll:
+    """Records each cross-entropy chunk a forward computes
+    (``repro_torch.models.model._chunk_nll``; not remat's recompute in
+    the backward): the hidden state's and the head's dtypes, the chunk's
+    summed token NLL (float32) and its token count."""
+
+    def __enter__(self):
+        from repro_torch.models import model
+
+        self._model, self._fn, self.calls = model, model._chunk_nll, []
+
+        def spy(h, labels, head, cap):
+            out = self._fn(h, labels, head, cap)
+            if not in_backward():
+                self.calls.append((str(h.dtype), str(head.dtype),
+                                   out.detach(), labels.numel()))
+            return out
+
+        model._chunk_nll = spy
+        return self
+
+    def __exit__(self, *exc):
+        self._model._chunk_nll = self._fn
+        return False
+
+    def summary(self) -> str:
+        if not self.calls:
+            return "no chunk"
+        dtypes = sorted({(h, w) for h, w, _, _ in self.calls})
+        total = sum(float(c[2]) for c in self.calls)
+        tokens = sum(c[3] for c in self.calls)
+        return (f"hidden/head {dtypes}, {len(self.calls)} chunks, NLL "
+                f"{total / tokens!r}")
+
+
+def in_backward() -> bool:
+    """True while autograd runs a backward (where remat recomputes a
+    checkpointed forward)."""
+    import torch
+
+    return torch._C._current_graph_task_id() >= 0
 
 
 def route_flips(calls_a: list, calls_b: list) -> dict:
@@ -3504,6 +3566,341 @@ def phase_vlm_prefill(cfg, params, params32, dev) -> dict:
                 logit_err_f32=err32, moved_by_vision=moved)
 
 
+#: Phase 18 (c): the dry run's FLOPs within this fraction of the profiled
+#: step's (both sides count the same aten products and the same kernel
+#: formulas, so a larger gap is a counting fault), and its peak within
+#: this ratio of the measured peak
+MESH_FLOPS_TOL = 0.01
+MESH_PEAK_RATIO = (0.75, 1.25)
+#: the products torch.profiler's ``with_flops`` counts that the dry run
+#: counts too
+PROFILED_PRODUCTS = ("aten::mm", "aten::addmm", "aten::bmm", "aten::baddbmm")
+
+
+class kernel_work:
+    """Adds up, by the kernel packages' formulas, the FLOPs and bytes of
+    every ``flash_attention`` forward and backward launched inside the
+    block (the dry run counts its shape-only calls with the same
+    formulas)."""
+
+    def __enter__(self):
+        from repro_torch.kernels.flash_attention import ops
+        from repro_torch.kernels.flash_attention.work import (
+            attention_bwd_work, attention_work)
+        from repro_torch.kernels.flash_attention_bwd import kernel as bwd
+
+        self.flops = self.bytes = 0.0
+        self.calls = {"flash_attention": 0, "flash_attention_bwd": 0}
+        self._ops, self._bwd = ops, bwd
+        self._fwd_fn, self._bwd_fn = (ops.flash_attention_kernel,
+                                      bwd.flash_attention_bwd_kernel)
+
+        def shape(q, k, kw):
+            B, H, Sq, hd = q.shape
+            return (B, H, k.shape[1], hd, Sq, k.shape[2]), dict(
+                causal=kw.get("causal", True), window=kw.get("window"),
+                q_offset=kw.get("q_offset", 0), kv_len=kw.get("kv_len"))
+
+        def fwd(q, k, v, **kw):
+            dims, mask = shape(q, k, kw)
+            b, f = attention_work(*dims, size=q.element_size(), **mask)
+            self._add("flash_attention", f, b)
+            return self._fwd_fn(q, k, v, **kw)
+
+        def bwd_(q, k, v, o, lse, do, **kw):
+            dims, mask = shape(q, k, kw)
+            b, f = attention_bwd_work(*dims, size=q.element_size(),
+                                      o_size=o.element_size(), **mask)
+            self._add("flash_attention_bwd", f, b)
+            return self._bwd_fn(q, k, v, o, lse, do, **kw)
+
+        ops.flash_attention_kernel = fwd
+        bwd.flash_attention_bwd_kernel = bwd_
+        return self
+
+    def _add(self, name, flops, bytes_):
+        self.calls[name] += 1
+        self.flops += flops
+        self.bytes += bytes_
+
+    def __exit__(self, *exc):
+        self._ops.flash_attention_kernel = self._fwd_fn
+        self._bwd.flash_attention_bwd_kernel = self._bwd_fn
+        return False
+
+
+def profiled_products(events) -> tuple[dict, dict, dict]:
+    """FLOPs of the products of a profiled step by operator name
+    (``with_flops``): those that ran on the card; apart from them the
+    events that enclose another product (a DTensor operator is recorded
+    around the local operator it runs) and the products that launched
+    nothing. The profiler records an operator where it is called, above
+    autograd: a checkpoint's recompute that stops early (once every saved
+    tensor is back) stops inside the autograd wrapper of its last
+    product, whose kernel never runs, once a remat segment."""
+    ran, outer, aborted = {}, {}, {}
+
+    def encloses(e) -> bool:
+        return any(c.name in PROFILED_PRODUCTS or encloses(c)
+                   for c in e.cpu_children)
+
+    def launched(e) -> bool:
+        return bool(e.kernels) or any(
+            "Launch" in c.name or launched(c) for c in e.cpu_children)
+
+    for e in events:
+        if e.name in PROFILED_PRODUCTS:
+            into = (outer if encloses(e) else ran if launched(e)
+                    else aborted)
+            into[e.name] = into.get(e.name, 0) + (e.flops or 0)
+    return ran, outer, aborted
+
+
+class count_propagation:
+    """Counts DTensor's sharding propagations on fake tensors inside the
+    block (each runs an operator once on global shapes, which the profiler
+    records too); a step whose rules are all cached makes none."""
+
+    def __enter__(self):
+        from torch.distributed.tensor._sharding_prop import ShardingPropagator
+
+        self._cls = ShardingPropagator
+        self._orig = ShardingPropagator._propagate_tensor_meta_non_cached
+        self.calls = 0
+
+        def counted(prop, op_schema):
+            self.calls += 1
+            return self._orig(prop, op_schema)
+
+        ShardingPropagator._propagate_tensor_meta_non_cached = counted
+        return self
+
+    def __exit__(self, *exc):
+        self._cls._propagate_tensor_meta_non_cached = self._orig
+        return False
+
+
+def start_mesh_dryrun(out_dir: str) -> subprocess.Popen:
+    """Phase 18 (c)'s prediction, started first so that it runs beside
+    (a) and (b): ``repro_torch.launch.dryrun`` for gemma3-1b's training
+    step at ``TRAIN_B`` x ``TRAIN_S``, one microbatch, on a (1, 1) mesh of
+    the fake backend, in its own process (it creates its process group)."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.join(ROOT, "src")] + [p for p in os.environ.get(
+            "PYTHONPATH", "").split(os.pathsep) if p]))
+    return subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         "gemma3-1b", "--shape", "train_4k", "--batch", str(TRAIN_B),
+         "--seq", str(TRAIN_S), "--mesh", "1x1", "--n-micro", "1", "--out",
+         out_dir], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+
+
+def phase_mesh(dev) -> dict:
+    """Phase 18: the mesh on the card. A (1, 1) ``DeviceMesh`` over NCCL at
+    world size 1, from an in-process ``HashStore``. (a) gemma3-1b's
+    parameters at full width and depth, written to a checkpoint and
+    restored, placed by ``reshard_for_mesh`` with the parameter rules:
+    each leaf's ``full_tensor()`` bit-equal to the restored leaf. (b) its
+    first training step at ``TRAIN_B`` x ``TRAIN_S`` with DTensor
+    parameters, optimizer state and batch through ``make_train_step(mesh=
+    ...)``'s gradient (``grad_fn`` with the pins): ``flash_attention``
+    and ``flash_attention_bwd`` launch as in phase 12 (b)'s first step,
+    the loss and every gradient leaf within ``TRAIN_TOL`` of the step
+    without a mesh (the largest difference printed: 0 is expected on one
+    rank); then whole steps, timed, with ``max_memory_allocated``. (c) the
+    dry run of the same cell on a (1, 1) fake mesh in a subprocess: its
+    FLOPs (aten products plus the kernels' formulas) within
+    ``MESH_FLOPS_TOL`` of one profiled step's (``torch.profiler``'s
+    ``with_flops`` over the same products, plus the same formulas over
+    the launched kernels), its peak within ``MESH_PEAK_RATIO`` of the
+    measured one."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.checkpoint.ckpt import (reshard_for_mesh,
+                                             restore_checkpoint,
+                                             save_checkpoint)
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _cuda
+    from repro_torch.launch import shardings as S
+    from repro_torch.launch import train as launch_train
+    from repro_torch.launch.mesh import axis_sizes, data_axes, make_debug_mesh
+    from repro_torch.models import shardctx
+    from repro_torch.train.optimizer import tree_leaves
+    from repro_torch.train.train_step import grad_fn, make_train_step
+
+    t_phase = time.perf_counter()
+    smi = nvidia_smi()
+    torch.cuda.empty_cache()
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    predicting = start_mesh_dryrun(out_dir)
+    cfg = get_config("gemma3-1b")
+    layers = kernel_layers(cfg, "flash_attention")
+    # remat checkpoints each group and each remainder block
+    segments = cfg.n_groups + len(cfg.remainder_pattern)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1, device_id=dev)
+    try:
+        mesh = make_debug_mesh(1, 1, device_type="cuda")
+        sizes = axis_sizes(mesh)
+        rule = lambda path, leaf: S.placements(  # noqa: E731
+            S.param_pspec(path, tuple(leaf.shape), sizes), mesh)
+        run = launch_train.build(cfg, batch=TRAIN_B, seq=TRAIN_S,
+                                 steps=TRAIN_STEPS, device=dev)
+        params, opt, tcfg = run.pop("params"), run.pop("opt"), run["tcfg"]
+
+        # (a) resharding a restored checkpoint
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as ck:
+            save_checkpoint(params, ck, 0, n_shards=4)
+            restored, _ = restore_checkpoint(ck, 0, like=params, device=dev)
+        placed = reshard_for_mesh(restored, mesh, rule)
+        n_leaves = 0
+        for a, b_ in zip(tree_leaves(placed), tree_leaves(restored)):
+            if not (isinstance(a, DTensor) and a.dtype == b_.dtype
+                    and torch.equal(a.full_tensor(), b_)):
+                raise AssertionError("reshard_for_mesh: a leaf differs from "
+                                     "the restored one")
+            n_leaves += 1
+        if not all(torch.equal(a, b_) for a, b_ in
+                   zip(tree_leaves(restored), tree_leaves(params))):
+            raise AssertionError("the restored checkpoint differs from the "
+                                 "parameters written")
+        reshard_s = time.perf_counter() - t0
+        del placed, restored
+        print(f"[mesh] phase 18 (a) gemma3-1b: {n_leaves} leaves written, "
+              f"restored and placed on the (1, 1) mesh by the parameter "
+              f"rules, each full_tensor() bit-equal to the restored leaf "
+              f"({reshard_s!r} s)")
+
+        # (b) the first step on DTensors against the step without a mesh
+        batch, _ = run["loader"].next_batch()
+        b = launch_train.family_batch(cfg, batch, device=dev)
+        dt = lambda spec, t: DTensor.from_local(  # noqa: E731
+            t, mesh, S.placements(spec, mesh), run_check=False)
+        on_mesh = lambda tree: S.tree_map_with_path(  # noqa: E731
+            lambda path, t: dt(S.param_pspec(path, tuple(t.shape), sizes),
+                               t), tree)
+        dparams = on_mesh(params)
+        dopt = {k: on_mesh(v) if k != "step" else dt((), v)
+                for k, v in opt.items()}
+        dbatch = {k: dt(S.batch_pspec(k, tuple(v.shape), mesh), v)
+                  for k, v in b.items()}
+        pins = S.param_shardings(mesh, params)
+        pinned = dict(mesh=mesh, dp_axes=data_axes(mesh),
+                      grad_shardings=pins)
+        l0, _, g0 = grad_fn(cfg, tcfg, params, b)
+        l0 = float(l0)
+        shardctx.set_mesh(mesh, data_axes(mesh))
+        try:
+            _cuda.reset_launches()                  # the mesh path
+            with implicit_replication():
+                l1, _, g1 = grad_fn(cfg, tcfg, dparams, dbatch, **pinned)
+            torch.cuda.synchronize(dev)
+            launches = dict(_cuda.LAUNCHES)
+            l1 = float(l1.full_tensor() if isinstance(l1, DTensor) else l1)
+            errs, diffs = [], []
+            for a, b_ in zip(tree_leaves(g1), tree_leaves(g0)):
+                a = a.full_tensor() if isinstance(a, DTensor) else a
+                errs.append(_rel_l2(a, b_))
+                diffs.append(float((a.float() - b_.float()).abs().max()))
+            del g0, g1
+            loss_err = abs(l1 - l0) / abs(l0)
+            want = {"flash_attention": 2 * layers,
+                    "flash_attention_bwd": layers}
+            others = {n: c for n, c in launches.items()
+                      if c and n not in want}
+            print(f"[mesh] phase 18 (b) gemma3-1b first step B={TRAIN_B} "
+                  f"S={TRAIN_S} on the (1, 1) mesh: loss {l1!r} (without a "
+                  f"mesh {l0!r}, rel err {loss_err!r}); {len(errs)} gradient "
+                  f"leaves: max rel L2 {max(errs)!r}, max abs difference "
+                  f"{max(diffs)!r} (tol {TRAIN_TOL}); launches {launches} "
+                  f"(want {want}); card {smi}")
+            if (loss_err > TRAIN_TOL or max(errs) > TRAIN_TOL or others
+                    or any(launches[n] != c for n, c in want.items())):
+                raise AssertionError(f"phase 18 (b): loss rel err "
+                                     f"{loss_err}, leaf {max(errs)}, "
+                                     f"launches {launches}")
+            step = make_train_step(cfg, tcfg, **pinned)
+            del params, opt
+            times, peak = [], 0
+            for _ in range(2):          # the first warms DTensor's caches
+                torch.cuda.synchronize(dev)
+                torch.cuda.reset_peak_memory_stats(dev)
+                t1 = time.perf_counter()
+                out = step(dparams, dopt, dbatch)
+                torch.cuda.synchronize(dev)
+                times.append(time.perf_counter() - t1)
+                peak = torch.cuda.max_memory_allocated(dev)
+                del out
+            acts = [torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA]
+            with torch.profiler.profile(activities=acts,
+                                        with_flops=True) as prof:
+                with kernel_work() as work, count_propagation() as props:
+                    out = step(dparams, dopt, dbatch)
+                    torch.cuda.synchronize(dev)
+            del out
+        finally:
+            shardctx.clear()
+        products, nested, aborted = profiled_products(prof.events())
+        measured = sum(products.values()) + work.flops
+        print(f"[mesh] phase 18 (b) whole steps on the mesh: step_ms "
+              f"{[1e3 * t for t in times]} max_memory_allocated={peak} "
+              f"(B={TRAIN_B} S={TRAIN_S}); card {smi}")
+    finally:
+        dist.destroy_process_group()
+
+    # (c) the dry run's prediction of the same step
+    log, _ = predicting.communicate(timeout=600)
+    path = os.path.join(out_dir, "gemma3-1b__train_4k__1x1.json")
+    if predicting.returncode or not os.path.exists(path):
+        raise AssertionError(f"phase 18 (c): the dry run failed: "
+                             f"{log[-2000:]}")
+    with open(path) as f:
+        rec = json.load(f)
+    if not rec.get("ok"):
+        raise AssertionError(f"phase 18 (c): {rec.get('error')}")
+    predicted = rec["matmul_flops_per_device"] + rec[
+        "kernel_flops_per_device"]
+    flops_err = abs(predicted - measured) / measured
+    ratio = rec["peak_bytes"] / peak
+    print(f"[mesh] phase 18 (c) dry run of the same step on a (1, 1) fake "
+          f"mesh ({rec['wall_s']!r} s): predicted FLOPs {predicted!r} "
+          f"(products {rec['matmul_flops_per_device']!r}, kernels "
+          f"{rec['kernel_flops_per_device']!r}, {rec['kernels']}); profiled "
+          f"{measured!r} (products {products}, kernels {work.flops!r}, "
+          f"{work.calls}; not counted: the DTensor-level product events "
+          f"around them {nested}, the products that launched nothing "
+          f"(a remat recompute's early stop) {aborted} against "
+          f"{segments} segments; sharding propagations in the step "
+          f"{props.calls}); rel err {flops_err!r} (tol {MESH_FLOPS_TOL}); "
+          f"peak predicted {rec['peak_bytes']} measured {peak} ratio "
+          f"{ratio!r} (within {MESH_PEAK_RATIO}); card {smi}")
+    if flops_err > MESH_FLOPS_TOL or not (
+            MESH_PEAK_RATIO[0] <= ratio <= MESH_PEAK_RATIO[1]):
+        raise AssertionError(f"phase 18 (c): FLOPs rel err {flops_err}, "
+                             f"peak ratio {ratio}")
+    wall = time.perf_counter() - t_phase
+    print(f"[mesh] phase 18 wall_s={wall!r}")
+    return {"launches": launches, "loss_rel_err": loss_err,
+            "max_leaf_rel_l2": max(errs), "max_abs_diff": max(diffs),
+            "reshard_leaves": n_leaves, "reshard_s": reshard_s,
+            "step_ms": [1e3 * t for t in times], "peak_bytes": peak,
+            "predicted_flops": predicted, "profiled_flops": measured,
+            "profiled_products": products, "enclosing_products": nested,
+            "aborted_products": aborted,
+            "propagations": props.calls, "kernel_formula_flops": work.flops,
+            "flops_rel_err": flops_err,
+            "predicted_peak_bytes": rec["peak_bytes"], "peak_ratio": ratio,
+            "dryrun_wall_s": rec["wall_s"], "phase_s": wall}
+
+
 def ptxas_report(log: str) -> list:
     """``(kernel, "N registers, S bytes spill stores, L bytes spill
     loads")`` for each entry function of one ``nvcc -Xptxas -v`` log."""
@@ -3704,6 +4101,7 @@ def main() -> int:
     vlm_train = phase_train_vlm(dev)
     print(f"[encdec] phase 17 (a, b, c) wall_s="
           f"{time.perf_counter() - t17!r}")
+    mesh = phase_mesh(dev)
     model["flash_attention"] += encdec_kernels
     launches = {"net_rerate": golden["net_rerate"],
                 "event_engine": scale["event_engine"]}
@@ -3836,6 +4234,7 @@ def main() -> int:
     bwd_f32 = [r for r in later if r["dtype"] == "float32"]
     row = rows[0]
     trained = (("gemma3-1b", train), ("granite-moe-1b-a400m", moe_train),
+               ("gemma3-1b on the (1, 1) mesh, first step", mesh),
                (f"zamba2-7b depth {ZAMBA_TRAIN_LAYERS}", zamba_train),
                (WHISPER, whisper_train), ("internvl2-2b", vlm_train))
     bwd_launches = {a: t["launches"]["flash_attention_bwd"]

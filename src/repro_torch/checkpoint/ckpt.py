@@ -14,8 +14,8 @@ either package restores in the other. Restore:
     (:func:`choose_restore_sources`): intra-region replica first,
     max-available-bandwidth holder, cross-region only as a fallback.
 
-Placing restored tensors on a device mesh (the reference's
-``reshard_for_mesh``) waits for the port's mesh (ROADMAP queue 1, item 1).
+:func:`reshard_for_mesh` places restored tensors on a device mesh
+(elastic re-shard) as DTensors.
 """
 
 from __future__ import annotations
@@ -185,7 +185,26 @@ def choose_restore_sources(manifest: Manifest, topology: "GridTopology",
 
 
 def reshard_for_mesh(tree, mesh, sharding_fn):
-    """Elastic re-shard onto a device mesh: not ported yet."""
-    raise NotImplementedError(
-        "reshard_for_mesh needs the port's device mesh, which is not ported "
-        "to repro_torch yet (ROADMAP queue 1, item 1)")
+    """Elastic re-shard: place restored tensors on a (new) mesh.
+
+    ``sharding_fn(path, leaf)`` gives a leaf's DTensor placements on
+    ``mesh`` (e.g. ``launch.shardings.placements(param_pspec(...),
+    mesh)``), or None to leave the leaf as it is. Each placed leaf is
+    ``torch.distributed.tensor.distribute_tensor(leaf, mesh, placements)``
+    (every rank holds the whole restored tree and keeps its shard). The
+    tree keeps its structure; a path is a tuple of strings, as
+    :func:`_leaf_paths` gives."""
+    from torch.distributed.tensor import distribute_tensor
+
+    def place(node, path):
+        if isinstance(node, dict):
+            return {k: place(v, path + (str(k),)) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return type(node)(place(v, path + (str(i),))
+                              for i, v in enumerate(node))
+        if node is None:
+            return None
+        pl = sharding_fn(path, node)
+        return node if pl is None else distribute_tensor(node, mesh, pl)
+
+    return place(tree, ())

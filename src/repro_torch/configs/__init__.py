@@ -1,5 +1,7 @@
 """Model configurations the serving path runs (the reference's schema)."""
 
-from .base import (ArchConfig, MoEConfig, SSMConfig, arch_ids, get_config)
+from .base import (SHAPES, ArchConfig, MoEConfig, ShapeConfig, SSMConfig,
+                   arch_ids, cells, get_config)
 
-__all__ = ["ArchConfig", "MoEConfig", "SSMConfig", "arch_ids", "get_config"]
+__all__ = ["SHAPES", "ArchConfig", "MoEConfig", "ShapeConfig", "SSMConfig",
+           "arch_ids", "cells", "get_config"]

@@ -136,6 +136,27 @@ class ArchConfig:
         )
 
 
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """One cell's input shape: ``seq_len`` tokens (the encoder's frames
+    for the encoder-decoder) of ``global_batch`` rows, run as ``kind``."""
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: Literal["train", "prefill", "decode"]
+
+
+#: The reference's shape registry, entry for entry: ``long_500k`` is a
+#: batch-1 decode at 524,288 positions, run only by the sub-quadratic
+#: configs (every other config lists it in ``skip_shapes``).
+SHAPES: dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
+
+
 #: Every architecture of the reference's registry: decoder-only blocks
 #: (``attn``, ``attn_local``, ``mamba1``, ``mamba2``, ``shared_attn``, the
 #: MoE feed-forward), the encoder-decoder (whisper) and the VLM front end.
@@ -164,3 +185,10 @@ def get_config(arch_id: str) -> ArchConfig:
         raise KeyError(f"unknown arch {arch_id!r} (the port has "
                        f"{', '.join(_REGISTRY)})")
     return importlib.import_module(_REGISTRY[arch_id]).CONFIG
+
+
+def cells(arch_id: str) -> list[str]:
+    """The (arch x shape) cells of ``arch_id``: every shape of
+    :data:`SHAPES` its config does not skip."""
+    cfg = get_config(arch_id)
+    return [s for s in SHAPES if s not in cfg.skip_shapes]

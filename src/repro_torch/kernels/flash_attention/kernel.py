@@ -14,8 +14,9 @@ from dataclasses import dataclass
 
 import torch
 
-from .. import _cuda
+from .. import _cuda, shapeonly
 from .ref import key_range
+from .work import attention_work
 
 #: head dims the kernel is compiled for (those of the repo's configs/tests;
 #: 112 is zamba2-7b's shared attention block)
@@ -76,7 +77,7 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError(f"flash_attention: dtype {q.dtype} (want bfloat16 "
                          "or float32)")
     dev = q.device
-    if dev.type != "cuda":
+    if dev.type != "cuda" and not shapeonly.is_fake(q):
         raise ValueError(f"flash_attention: the CUDA kernel takes CUDA "
                          f"tensors, got {dev}")
     vec = 16 // q.element_size()
@@ -85,8 +86,10 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
             raise ValueError(f"flash_attention: {label} must be {q.dtype} on "
                              f"{dev}")
         # rows are read 16 bytes at a time: unit stride along hd, 16-byte
-        # aligned rows
-        if t.stride(3) != 1 or t.data_ptr() % 16 or any(
+        # aligned rows (a fake tensor, on the shape-only route, has no
+        # address)
+        aligned = shapeonly.is_fake(t) or t.data_ptr() % 16 == 0
+        if t.stride(3) != 1 or not aligned or any(
                 s % vec for s in t.stride()[:3]):
             raise ValueError(f"flash_attention: {label} needs a unit stride "
                              "along hd and 16-byte aligned rows, got strides "
@@ -139,6 +142,12 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if plan.route == "decode":
         scratch = torch.empty((B, H, Sq, plan.n_split, hd + 2),
                               dtype=torch.float32, device=dev)
+    if shapeonly.is_fake(q):
+        bytes_, flops = attention_work(
+            B, H, KV, hd, Sq, Skv, size=q.element_size(), causal=causal,
+            window=window, q_offset=q_offset, kv_len=kv_len)
+        shapeonly.report("flash_attention", flops, bytes_)
+        return done
     strides = (ctypes.c_int64 * 12)(*q.stride()[:3], *k.stride()[:3],
                                     *v.stride()[:3], *out.stride()[:3])
     err = _cuda.entry_point("flash_attention")(

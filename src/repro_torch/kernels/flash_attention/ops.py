@@ -9,6 +9,7 @@ import torch
 # one's, so either may be imported first
 from ..flash_attention_bwd import kernel as bwd_kernel
 from ..flash_attention_bwd import ref as bwd_ref
+from .. import shapeonly
 from .kernel import flash_attention_kernel
 from .ref import flash_attention_lse_ref, flash_attention_ref
 
@@ -22,7 +23,9 @@ def _plain(backend: str, q: torch.Tensor) -> bool:
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r} (want one of "
                          f"{BACKENDS})")
-    return backend == "plain" or (backend == "auto" and q.device.type == "cpu")
+    # a fake tensor (the dry run's) takes the kernel's shape-only route
+    return backend == "plain" or (backend == "auto" and q.device.type == "cpu"
+                                  and not shapeonly.is_fake(q))
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

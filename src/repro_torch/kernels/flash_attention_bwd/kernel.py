@@ -24,8 +24,9 @@ from dataclasses import dataclass
 
 import torch
 
-from .. import _cuda
+from .. import _cuda, shapeonly
 from ..flash_attention.kernel import HEAD_DIMS
+from ..flash_attention.work import attention_bwd_work
 
 #: keys per dK/dV and dQ key tile, (head, query) rows per row tile: the
 #: 64-row M of one wgmma
@@ -209,7 +210,7 @@ def _check(q, k, v, o, lse, do) -> None:
         raise ValueError(
             f"flash_attention_bwd: dtype {q.dtype}; the backward kernel "
             "takes bf16 or float32")
-    if q.device.type != "cuda":
+    if q.device.type != "cuda" and not shapeonly.is_fake(q):
         raise ValueError(f"flash_attention_bwd: the CUDA kernel takes CUDA "
                          f"tensors, got {q.device}")
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
@@ -236,7 +237,8 @@ def _check(q, k, v, o, lse, do) -> None:
             raise ValueError(f"flash_attention_bwd: {label} must be "
                              f"{want} on {q.device}")
         # bf16 rows are copied by TMA: 16-byte aligned base and strides
-        if t.stride(3) != 1 or t.data_ptr() % 16 or any(
+        aligned = shapeonly.is_fake(t) or t.data_ptr() % 16 == 0
+        if t.stride(3) != 1 or not aligned or any(
                 s % (16 // t.element_size()) for s in t.stride()[:3]):
             raise ValueError(f"flash_attention_bwd: {label} needs a unit "
                              "stride along hd and 16-byte aligned rows, got "
@@ -279,6 +281,13 @@ def flash_attention_bwd_kernel(q: torch.Tensor, k: torch.Tensor,
     if Sq == 0 or Skv == 0 or B == 0 or kend == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
     delta = torch.empty((B, H, Sq), dtype=torch.float32, device=dev)
+    if shapeonly.is_fake(q):
+        bytes_, flops = attention_bwd_work(
+            B, H, KV, hd, Sq, Skv, size=q.element_size(),
+            o_size=o.element_size(), causal=causal, window=window,
+            q_offset=q_offset, kv_len=kv_len)
+        shapeonly.report("flash_attention_bwd", flops, bytes_)
+        return dq, dk, dv
     strides = (ctypes.c_int64 * 24)(*(s for t in (q, k, v, o, do, dq, dk, dv)
                                       for s in t.stride()[:3]))
     if q.dtype == torch.float32:

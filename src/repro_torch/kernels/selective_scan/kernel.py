@@ -4,7 +4,8 @@ from __future__ import annotations
 
 import torch
 
-from .. import _cuda
+from .. import _cuda, shapeonly
+from .work import scan_work
 
 #: the widest state the kernel keeps in registers
 MAX_STATE = 16
@@ -45,11 +46,16 @@ def selective_scan_kernel(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
             ("h0", h0, f32, (Bz, Di, N))]
     if states is not None:
         args.append(("states", states, f32, (Bz, -(-S // ROUND), Di, N)))
-    dev = _cuda.check_args("selective_scan", args)
+    dev = _cuda.check_args("selective_scan", args,
+                           cuda=not shapeonly.is_fake(x))
     y = torch.empty_like(x)
     h_last = torch.empty_like(h0)
     if S == 0 or Bz * Di == 0:
         return y, h_last.copy_(h0)
+    if shapeonly.is_fake(x):
+        bytes_, flops, _ = scan_work(Bz, S, Di, N)
+        shapeonly.report("selective_scan", flops, bytes_)
+        return y, h_last
     err = _cuda.entry_point("selective_scan")(
         x.data_ptr(), dt.data_ptr(), B.data_ptr(), C.data_ptr(), A.data_ptr(),
         D.data_ptr(), h0.data_ptr(), y.data_ptr(), h_last.data_ptr(),

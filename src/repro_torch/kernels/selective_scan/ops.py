@@ -1,5 +1,8 @@
 """The selective scan as the Mamba-1 layers call it: the forward alone
-(serving) and the differentiable forward and backward (training)."""
+(serving) and the differentiable forward and backward (training). On
+DTensor inputs (a sharded step) each rank scans its shards
+(:mod:`..sharded`): the batch over the data axes, the channels over
+``model`` when they divide it."""
 
 from __future__ import annotations
 
@@ -9,6 +12,7 @@ import torch
 # one's, so either may be imported first
 from ..selective_scan_bwd import kernel as bwd_kernel
 from ..selective_scan_bwd import ref as bwd_ref
+from .. import shapeonly, sharded
 from .kernel import round_states, selective_scan_kernel
 from .ref import selective_scan_ref
 
@@ -22,7 +26,9 @@ def _plain(backend: str, x: torch.Tensor) -> bool:
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r} (want one of "
                          f"{BACKENDS})")
-    return backend == "plain" or (backend == "auto" and x.device.type == "cpu")
+    # a fake tensor (the dry run's) takes the kernel's shape-only route
+    return backend == "plain" or (backend == "auto" and x.device.type == "cpu"
+                                  and not shapeonly.is_fake(x))
 
 
 def selective_scan(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
@@ -31,6 +37,9 @@ def selective_scan(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
                    ) -> tuple[torch.Tensor, torch.Tensor]:
     """(y, h_last) of the recurrence (see :func:`.ref.selective_scan_ref`).
     The kernel raises rather than fall back to the plain version."""
+    if sharded.is_sharded(x):
+        return _on_shards(lambda *a: selective_scan(*a, backend=backend),
+                          x, dt, B, C, A, D, h0)
     fn = selective_scan_ref if _plain(backend, x) else selective_scan_kernel
     return fn(x, dt, B, C, A, D, h0)
 
@@ -71,4 +80,19 @@ def selective_scan_train(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
                          h0: torch.Tensor, *, backend: str = "auto"
                          ) -> tuple[torch.Tensor, torch.Tensor]:
     """:func:`selective_scan` under autograd (:class:`SelectiveScanFn`)."""
+    if sharded.is_sharded(x):
+        return _on_shards(lambda *a: SelectiveScanFn.apply(*a, backend),
+                          x, dt, B, C, A, D, h0)
     return SelectiveScanFn.apply(x, dt, B, C, A, D, h0, backend)
+
+
+def _on_shards(fn, x, dt, B, C, A, D, h0):
+    """``fn(x, dt, B, C, A, D, h0) -> (y, h_last)`` on each rank's shards:
+    x, dt (Bz, S, Di) and h0 (Bz, Di, N) by batch and channel, B and C
+    (Bz, S, N) by batch, A (Di, N) and D (Di,) by channel."""
+    m = sharded.model_ranks(x)
+    roles = ((0, 2), (0, 2), (0, None), (0, None), (None, 0), (None, 0),
+             (0, 1))
+    return sharded.call_local(fn, (x, dt, B, C, A, D, h0), roles,
+                              ((0, 2), (0, 1)), batch=x.shape[0],
+                              split_model=x.shape[2] % m == 0)

@@ -9,8 +9,9 @@ import ctypes
 
 import torch
 
-from .. import _cuda
+from .. import _cuda, shapeonly
 from ..selective_scan.kernel import MAX_STATE, ROUND
+from .work import scan_bwd_work
 
 #: channels a block of the reverse walk serves
 CHANNELS = 64
@@ -68,7 +69,8 @@ def selective_scan_bwd_kernel(x: torch.Tensor, dt: torch.Tensor,
             ("dy", dy, x.dtype, (Bz, S, Di))]
     if dh_last is not None:
         args.append(("dh_last", dh_last, f32, (Bz, Di, N)))
-    dev = _cuda.check_args("selective_scan_bwd", args)
+    dev = _cuda.check_args("selective_scan_bwd", args,
+                           cuda=not shapeonly.is_fake(x))
     dx, ddt = torch.empty_like(x), torch.empty_like(dt)
     dB, dC = torch.empty_like(B), torch.empty_like(C)
     dA, dD = torch.empty_like(A), torch.empty_like(D)
@@ -81,6 +83,10 @@ def selective_scan_bwd_kernel(x: torch.Tensor, dt: torch.Tensor,
     part_dc = torch.empty_like(part_db)
     part_da = torch.empty((Bz, Di, N), dtype=f32, device=dev)
     part_dd = torch.empty((Bz, Di), dtype=f32, device=dev)
+    if shapeonly.is_fake(x):
+        bytes_, flops, _ = scan_bwd_work(Bz, S, Di, N, x.element_size())
+        shapeonly.report("selective_scan_bwd", flops, bytes_)
+        return dx, ddt, dB, dC, dA, dD, dh0
     err = _cuda.entry_point("selective_scan_bwd")(
         *(t.data_ptr() for t in (x, dt, B, C, A, D, h0, states, dy)),
         None if dh_last is None else dh_last.data_ptr(),

@@ -39,6 +39,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
+from . import shardctx
 from .attention import attention_blockwise, attention_decode, attention_train
 from .common import layer_norm, normal_init
 from .mlp import gelu_mlp, init_gelu_mlp
@@ -120,27 +121,34 @@ def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def _enc_block(cfg: ArchConfig, bp: dict, x: torch.Tensor,
                backend: str) -> torch.Tensor:
     B, S, _ = x.shape
+    bp = shardctx.unshard(bp)
+    x = shardctx.anchor_batch(x)
     h = _ln(bp["ln1"], x)
     q, k, v = _mha_qkv(cfg, bp["attn"], h, h)
     o = _attend(q, k, v, causal=False, backend=backend)
-    x = x + o.reshape(B, S, -1) @ bp["attn"]["wo"] + bp["attn"]["bo"]
-    return x + gelu_mlp(bp["mlp"], _ln(bp["ln2"], x))
+    x = x + shardctx.anchor_batch(o.reshape(B, S, -1) @ bp["attn"]["wo"]) \
+        + bp["attn"]["bo"]
+    return x + shardctx.anchor_batch(gelu_mlp(bp["mlp"], _ln(bp["ln2"], x)))
 
 
 def _dec_block(cfg: ArchConfig, bp: dict, x: torch.Tensor,
                enc_out: torch.Tensor, backend: str) -> torch.Tensor:
     B, S, _ = x.shape
+    bp = shardctx.unshard(bp)
+    x = shardctx.anchor_batch(x)
     h = _ln(bp["ln1"], x)
     q, k, v = _mha_qkv(cfg, bp["self_attn"], h, h)
     o = _attend(q, k, v, causal=True, backend=backend)
-    x = x + o.reshape(B, S, -1) @ bp["self_attn"]["wo"] \
+    x = x + shardctx.anchor_batch(o.reshape(B, S, -1)
+                                  @ bp["self_attn"]["wo"]) \
         + bp["self_attn"]["bo"]
     h = _ln(bp["ln2"], x)
     q, k, v = _mha_qkv(cfg, bp["cross_attn"], h, enc_out)
     o = _attend(q, k, v, causal=False, backend=backend)
-    x = x + o.reshape(B, S, -1) @ bp["cross_attn"]["wo"] \
+    x = x + shardctx.anchor_batch(o.reshape(B, S, -1)
+                                  @ bp["cross_attn"]["wo"]) \
         + bp["cross_attn"]["bo"]
-    return x + gelu_mlp(bp["mlp"], _ln(bp["ln3"], x))
+    return x + shardctx.anchor_batch(gelu_mlp(bp["mlp"], _ln(bp["ln3"], x)))
 
 
 def _run(block, x: torch.Tensor, remat: bool) -> torch.Tensor:
@@ -154,7 +162,7 @@ def encode(cfg: ArchConfig, params: dict, frames: torch.Tensor, *,
     """frames: (B, S_enc, D) precomputed frame embeddings (the stub front
     end). Returns the encoder's normed output (B, S_enc, D)."""
     S = frames.shape[1]
-    x = frames + params["enc_pos"][None, :S]
+    x = shardctx.anchor_batch(frames + params["enc_pos"][None, :S])
     for bp in params["enc_blocks"]:
         x = _run(lambda h, bp=bp: _enc_block(cfg, bp, h, backend), x, remat)
     return _ln(params["enc_norm"], x)
@@ -166,7 +174,8 @@ def decode_train(cfg: ArchConfig, params: dict, enc_out: torch.Tensor,
     """Teacher-forced decoder forward. tokens: (B, S_dec) int. Returns the
     normed hidden states (B, S_dec, D)."""
     S = tokens.shape[1]
-    x = params["embed"][tokens] + params["dec_pos"][None, :S]
+    x = shardctx.anchor_batch(shardctx.embed_rows(params["embed"], tokens)
+                              + params["dec_pos"][None, :S])
     for bp in params["dec_blocks"]:
         x = _run(lambda h, bp=bp: _dec_block(cfg, bp, h, enc_out, backend),
                  x, remat)
@@ -218,9 +227,11 @@ def decode_step(cfg: ArchConfig, params: dict, caches: dict,
     no softcap."""
     B = token.shape[0]
     H, hd = cfg.n_heads, cfg.resolved_head_dim()
-    x = params["embed"][token] + params["dec_pos"][pos:pos + 1][None]
+    x = shardctx.embed_rows(params["embed"], token) \
+        + params["dec_pos"][pos:pos + 1][None]
     for i, bp in enumerate(params["dec_blocks"]):
         sk, sv, ck, cv = (caches[key][i] for key in CACHE_KEYS)
+        bp = shardctx.unshard(bp)
         p = bp["self_attn"]
         h = _ln(bp["ln1"], x)
         q = (h @ p["wq"] + p["bq"]).view(B, 1, H, hd)

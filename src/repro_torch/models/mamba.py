@@ -25,7 +25,10 @@ is positive and, at a chunk of 128 or more, passes float32's range: the
 reference's forward still gets 0 there, but exp's gradient forms
 ``0 * inf = NaN``. ``exp(-inf)`` is exactly 0, so the forward is the
 same, and the gradients stay finite at any chunk. The chunk work runs in
-an ``ssd`` profiler range.
+an ``ssd`` profiler range. On DTensor inputs (a sharded step) the chunk
+loop runs on each rank's shards (:mod:`repro_torch.kernels.sharded`): the
+batch over the data axes and the heads over ``model`` when they divide it
+(DTensor cannot place the chunk's batched products itself).
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..kernels import sharded
 from ..kernels.selective_scan import selective_scan, selective_scan_train
 from .common import normal_init, rms_norm, silu
 
@@ -183,6 +187,18 @@ def _ssd_chunk(S_state, xk, bk, ck, dtk, A):
     return S_new, y
 
 
+def _ssd_scan(S_state, xp, bp, cp, dtp, A, chunk: int):
+    """Every chunk of the padded sequence in turn, from S_state. Returns
+    (the final state, y (B, S_padded, nh, P))."""
+    ys = []
+    for c0 in range(0, xp.shape[1], chunk):
+        sl = slice(c0, c0 + chunk)
+        S_state, yk = _ssd_chunk(S_state, xp[:, sl], bp[:, sl], cp[:, sl],
+                                 dtp[:, sl], A)
+        ys.append(yk)
+    return S_state, torch.cat(ys, dim=1) if len(ys) > 1 else ys[0]
+
+
 def mamba2_forward(params: dict, x: torch.Tensor, ssm, *, chunk: int = 256,
                    state=None):
     """SSD chunked forward. x: (B, S, D) -> (y, (conv_states, ssm_state)).
@@ -228,14 +244,17 @@ def mamba2_forward(params: dict, x: torch.Tensor, ssm, *, chunk: int = 256,
         dtp = F.pad(dt, (0, 0, 0, pad))
     S_state = (torch.zeros((Bsz, nh, P, N), dtype=torch.float32,
                            device=x.device) if state is None else state[1])
-    ys = []
     with torch.profiler.record_function(SSD_SCOPE):
-        for c0 in range(0, S + pad, chunk):
-            sl = slice(c0, c0 + chunk)
-            S_state, yk = _ssd_chunk(S_state, xp[:, sl], bp[:, sl],
-                                     cp[:, sl], dtp[:, sl], A)
-            ys.append(yk)
-    y = torch.cat(ys, dim=1)[:, :S] if len(ys) > 1 else ys[0][:, :S]
+        args = (S_state, xp, bp, cp, dtp, A)
+        if sharded.is_sharded(xp):
+            m = sharded.model_ranks(xp)
+            S_state, y = sharded.call_local(
+                lambda *a: _ssd_scan(*a, chunk), args,
+                ((0, 1), (0, 2), (0, None), (0, None), (0, 2), (None, 0)),
+                ((0, 1), (0, 2)), batch=Bsz, split_model=nh % m == 0)
+        else:
+            S_state, y = _ssd_scan(*args, chunk)
+    y = y[:, :S]
     y = y + params["D_skip"][:, None] * xs
     y = y.reshape(Bsz, S, di).to(x.dtype)
     y = rms_norm(y * silu(z), params["norm_w"])

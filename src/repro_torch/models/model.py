@@ -20,8 +20,11 @@ SSD form has none in the reference and stays plain PyTorch), in bf16 or
 float32. The encoder-decoder (whisper, :mod:`.encdec`: the encoder and
 the cross-attention non-causal) and the VLM front end (a stub, as the
 reference's: patch embeddings overwrite the first positions) are served
-and trained the same way. On one card there is no activation
-sharding, so the reference's ``shardctx.anchor_batch`` has no counterpart.
+and trained the same way. With a mesh installed
+(:mod:`.shardctx`, the sharded step of :mod:`repro_torch.launch.dryrun`)
+the batch sharding is re-anchored where the reference anchors it: after
+the embedding, after the layer stack and on each cross-entropy chunk;
+without one those calls return their input.
 """
 
 from __future__ import annotations
@@ -30,9 +33,9 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from ..configs.base import ArchConfig
+from ..configs.base import ArchConfig, ShapeConfig
 from ..device import resolve_device
-from . import encdec
+from . import encdec, shardctx
 from .common import softcap
 from .transformer import check_config, init_lm_caches, init_lm_params, lm_apply
 
@@ -89,9 +92,9 @@ def _embed_tokens(cfg: ArchConfig, params: dict, tokens: torch.Tensor,
     """The token embeddings; for a VLM config the stub front end's patch
     embeddings (B, n, D), cast to the activation dtype, replace positions
     ``[0, n)``."""
-    x = _scaled(cfg, params["embed"][tokens])
+    x = _scaled(cfg, shardctx.embed_rows(params["embed"], tokens))
     if vision_embeds is None:
-        return x
+        return shardctx.anchor_batch(x)
     if not cfg.vision_tokens:
         raise ValueError(f"{cfg.name} has no vision front end "
                          "(vision_tokens = 0)")
@@ -101,7 +104,7 @@ def _embed_tokens(cfg: ArchConfig, params: dict, tokens: torch.Tensor,
         raise ValueError(f"vision_embeds {tuple(vision_embeds.shape)} do not "
                          f"fit the embedded tokens {tuple(x.shape)}")
     v = vision_embeds.to(x.device, x.dtype)
-    return torch.cat([v, x[:, n:]], dim=1)
+    return shardctx.anchor_batch(torch.cat([v, x[:, n:]], dim=1))
 
 
 def _head_matrix(cfg: ArchConfig, params: dict) -> torch.Tensor:
@@ -136,7 +139,7 @@ def _train_hidden(cfg: ArchConfig, params: dict, batch: dict,
     x = _embed_tokens(cfg, params, tokens, batch.get("vision_embeds"))
     hidden, _ = lm_apply(cfg, params, x, mode="train", remat=remat,
                          backend=backend)
-    return hidden
+    return shardctx.anchor_batch(hidden)
 
 
 def train_logits(cfg: ArchConfig, params: dict, batch: dict,
@@ -151,8 +154,9 @@ def _chunk_nll(h: torch.Tensor, labels: torch.Tensor, head: torch.Tensor,
                cap: float | None) -> torch.Tensor:
     """Summed next-token NLL of one chunk: the logits in the weights'
     dtype, cast to float32, capped; the gold logit picked by an index mask
-    over the vocab, as the reference does."""
-    logits = (h @ head).float()
+    over the vocab, as the reference does. On a mesh the logits are
+    anchored whole over ``model`` (each data rank its rows)."""
+    logits = shardctx.anchor_batch(h @ head).float()
     if cap is not None:
         logits = softcap(logits, cap)
     logz = torch.logsumexp(logits, dim=-1)
@@ -178,7 +182,9 @@ def chunked_cross_entropy(cfg: ArchConfig, params: dict, hidden: torch.Tensor,
     total = torch.zeros((), dtype=torch.float32, device=hidden.device)
     for c in range(nc):
         sl = slice(c * chunk, (c + 1) * chunk)
-        total = total + checkpoint(_chunk_nll, hidden[:, sl], labels[:, sl],
+        total = total + checkpoint(_chunk_nll,
+                                   shardctx.anchor_batch(hidden[:, sl]),
+                                   labels[:, sl],
                                    head, cfg.final_softcap,
                                    use_reentrant=False)
     return total / (B * S)
@@ -255,6 +261,35 @@ def decode_step(cfg: ArchConfig, params: dict, caches: dict,
     hidden, caches = lm_apply(cfg, params, x, mode="decode", caches=caches,
                               pos=pos, backend=backend)
     return _lm_logits(cfg, params, hidden), caches
+
+
+# --------------------------------------------------------------------------
+# dry-run input specs
+# --------------------------------------------------------------------------
+
+def input_specs(cfg: ArchConfig, shape: ShapeConfig) -> dict:
+    """Every model input of a cell as a meta tensor (no memory) of the
+    reference's shape and dtype (``repro.models.model.input_specs``).
+    Decode's caches and position are built by the caller
+    (:func:`init_caches`)."""
+    B, S = shape.global_batch, shape.seq_len
+    f = lambda s, dt: torch.empty(s, dtype=dt, device="meta")  # noqa: E731
+    i32, bf16 = torch.int32, torch.bfloat16
+    if shape.kind == "train":
+        if cfg.enc_dec:
+            return {"frames": f((B, S, cfg.d_model), bf16),
+                    "tokens": f((B, S // DEC_RATIO), i32),
+                    "labels": f((B, S // DEC_RATIO), i32)}
+        batch = {"tokens": f((B, S), i32), "labels": f((B, S), i32)}
+    elif shape.kind == "prefill":
+        if cfg.enc_dec:
+            return {"frames": f((B, S, cfg.d_model), bf16)}
+        batch = {"tokens": f((B, S), i32)}
+    else:
+        batch = {"tokens": f((B, 1), i32)}
+    if cfg.vision_tokens and not cfg.enc_dec and shape.kind != "decode":
+        batch["vision_embeds"] = f((B, cfg.vision_tokens, cfg.d_model), bf16)
+    return batch
 
 
 # --------------------------------------------------------------------------

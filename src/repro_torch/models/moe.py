@@ -22,14 +22,26 @@ working dtype and ascending expert order, as the reference's
 ``.at[token_of].add`` does. Every gather's indices are a permutation, or
 repeat only where the gathered rows are masked to zero, so the atomic adds
 of their backwards never meet two nonzero values in one place: forward and
-backward are bit-equal over calls. On one card there is no activation
-sharding: the reference's ``shardctx.anchor_batch`` has no counterpart.
+backward are bit-equal over calls.
+
+On DTensor inputs (a sharded step) the block runs on each rank's shards,
+as DTensor has no sharding rule for ``searchsorted`` and the stable
+sorts: the rows of x stay sharded over the data axes (the dispatch is
+local to a row), and when the experts divide the ``model`` axis each
+rank keeps its E / model experts (expert parallelism: the router and x
+are whole on every model rank, the rank's output is its experts' part of
+the sum, reduced over ``model`` by the next operator); otherwise every
+rank holds every expert. The input and output are anchored to the batch
+sharding (``shardctx.anchor_batch``), as in the reference.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import Partial
 
+from ..kernels import sharded
+from . import shardctx
 from .common import normal_init, silu
 
 
@@ -109,14 +121,57 @@ def moe_ffn(params: dict, x: torch.Tensor, *, top_k: int,
     time (and its backward's, through the autograd nodes' sequence
     numbers)."""
     with torch.profiler.record_function("moe_ffn"):
+        if sharded.is_sharded(x):
+            return _moe_on_shards(params, x, top_k=top_k,
+                                  capacity_factor=capacity_factor, act=act)
         return _moe_ffn(params, x, top_k=top_k,
                         capacity_factor=capacity_factor, act=act)
 
 
+_EXPERT_KEYS = ("router", "wg", "wu", "wd")
+
+
+def _moe_on_shards(params: dict, x, *, top_k: int, capacity_factor: float,
+                   act):
+    """:func:`moe_ffn` of a DTensor x on each rank's shards (the module
+    docstring); a dense residual MLP stays with the caller."""
+    x = shardctx.anchor_batch(x)
+    mesh = x.device_mesh
+    names = mesh.mesh_dim_names
+    m = sharded.model_ranks(x)
+    E = params["router"].shape[-1]
+    ep = m > 1 and E % m == 0
+    n = E // m if ep else E
+    e0 = mesh.get_local_rank("model") * n if ep else 0
+    expert = (None, 0 if ep else None)
+
+    def local(x_, router, wg, wu, wd):
+        p = {"router": router, "wg": wg, "wu": wu, "wd": wd}
+        return _moe_ffn(p, x_, top_k=top_k, capacity_factor=capacity_factor,
+                        act=act, experts=(e0, n) if ep else None)
+
+    args = (x,) + tuple(params[k] for k in _EXPERT_KEYS)
+    roles = ((0, None), (None, None), expert, expert, expert)
+    out = None
+    if ep:
+        out = [tuple(Partial() if name == "model" else p for name, p in
+                     zip(names, sharded.role_placements(
+                         mesh, x.shape[0], False, 0, None)))]
+    y = sharded.call_local(local, args, roles, ((0, None),),
+                           batch=x.shape[0], split_model=ep,
+                           out_placements=out)
+    return shardctx.anchor_batch(y)
+
+
 def _moe_ffn(params: dict, x: torch.Tensor, *, top_k: int,
-             capacity_factor: float, act) -> torch.Tensor:
+             capacity_factor: float, act,
+             experts: tuple[int, int] | None = None) -> torch.Tensor:
+    """``experts`` (e0, n): only the rank's experts e0 .. e0 + n - 1 of
+    the router's E (their ``wg``, ``wu``, ``wd``), whose part of each
+    token's sum is the output; all E without it."""
     B, S, D = x.shape
     E = params["router"].shape[-1]
+    e0, n = experts or (0, E)
     C = capacity(S, top_k, E, capacity_factor)
     r = route(x, params["router"], top_k=top_k, C=C)
     order, keep = r["order"], r["keep"]
@@ -125,20 +180,23 @@ def _moe_ffn(params: dict, x: torch.Tensor, *, top_k: int,
     # sorted slot starts[e] + c when c < counts[e], else zeros
     xs = _rows(x[:, :, None].expand(B, S, top_k, D).reshape(B, -1, D), order)
     c = torch.arange(C, device=x.device)
-    src = r["starts"][:, :, None] + c                          # (B, E, C)
-    filled = (c < r["counts"][:, :, None]).reshape(B, E * C, 1)
-    src = src.clamp(max=S * top_k - 1).reshape(B, E * C)
+    src = r["starts"][:, e0:e0 + n, None] + c                  # (B, n, C)
+    filled = (c < r["counts"][:, e0:e0 + n, None]).reshape(B, n * C, 1)
+    src = src.clamp(max=S * top_k - 1).reshape(B, n * C)
     buf = torch.where(filled, _rows(xs, src), 0.0)
-    buf = buf.view(B, E, C, D).transpose(0, 1).reshape(E, B * C, D)
+    buf = buf.view(B, n, C, D).transpose(0, 1).reshape(n, B * C, D)
 
     g = act(torch.bmm(buf, params["wg"]))
     u = torch.bmm(buf, params["wu"])
-    y = torch.bmm(g * u, params["wd"])                         # (E, B C, D)
-    yf = y.view(E, B, C, D).transpose(0, 1).reshape(B, E * C, D)
+    y = torch.bmm(g * u, params["wd"])                         # (n, B C, D)
+    yf = y.view(n, B, C, D).transpose(0, 1).reshape(B, n * C, D)
 
     # combine: each sorted slot's gated output (zero where dropped), back
     # to (S, k) in ascending expert order, added one choice at a time
-    slot = (r["sorted_e"] * C + r["pos"]).clamp(max=E * C - 1)
+    slot = ((r["sorted_e"] - e0) * C + r["pos"]).clamp(max=n * C - 1)
+    if experts is not None:             # another rank's experts add nothing
+        keep = keep & (r["sorted_e"] >= e0) & (r["sorted_e"] < e0 + n)
+        slot = slot.clamp(min=0)
     flat_gate = r["gates"].reshape(B, S * top_k).gather(1, order)
     contrib = torch.where(keep[..., None], _rows(yf, slot), 0.0) * \
         flat_gate[..., None].to(x.dtype)
@@ -155,7 +213,13 @@ def moe_aux_loss(params: dict, x: torch.Tensor, *,
                  top_k: int) -> torch.Tensor:
     """Switch-style load-balancing loss E * sum_e f_e p_e: f_e the share
     of the top-k choices that went to expert e, p_e its mean router
-    probability (only p carries a gradient)."""
+    probability (only p carries a gradient). A DTensor x is gathered
+    whole on every rank (f and p are means over every token)."""
+    if sharded.is_sharded(x):
+        return sharded.call_local(
+            lambda x_, r_: moe_aux_loss({"router": r_}, x_, top_k=top_k),
+            (x, params["router"]), ((None, None), (None, None)),
+            ((None, None),), batch=x.shape[0], split_model=False)
     D = x.shape[-1]
     E = params["router"].shape[-1]
     logits = x.reshape(-1, D).float() @ params["router"]

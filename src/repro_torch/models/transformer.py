@@ -42,6 +42,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
+from . import shardctx
 from .attention import attention_blockwise, attention_decode, attention_train
 from .common import ACTS, normal_init, rms_norm, rope
 from .mamba import (init_mamba1, init_mamba2, mamba1_decode, mamba1_forward,
@@ -152,6 +153,8 @@ def apply_block(cfg: ArchConfig, kind: str, p: dict, x: torch.Tensor, *,
     mode)."""
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r} (want one of {MODES})")
+    p = shardctx.unshard(p)
+    x = shardctx.anchor_batch(x)
     if kind in ATTN_KINDS:
         return _apply_attn(cfg, kind, p, x, mode=mode, cache=cache, pos=pos,
                            backend=backend)
@@ -163,7 +166,7 @@ def apply_block(cfg: ArchConfig, kind: str, p: dict, x: torch.Tensor, *,
     if mode == "train":
         y, _ = mamba1_forward(p["mixer"], h, cfg.ssm, backend=backend,
                               train=True)
-        return x + y, None
+        return x + shardctx.anchor_batch(y), None
     if mode == "prefill":
         y, (conv, ssm_state) = mamba1_forward(p["mixer"], h, cfg.ssm,
                                               backend=backend)
@@ -173,7 +176,7 @@ def apply_block(cfg: ArchConfig, kind: str, p: dict, x: torch.Tensor, *,
             backend=backend)
     cache["conv"] = conv.to(torch.bfloat16)
     cache["ssm"] = ssm_state
-    return x + y, cache
+    return x + shardctx.anchor_batch(y), cache
 
 
 def _apply_mamba2(cfg: ArchConfig, p: dict, x: torch.Tensor, *, mode: str,
@@ -186,10 +189,10 @@ def _apply_mamba2(cfg: ArchConfig, p: dict, x: torch.Tensor, *, mode: str,
         y, (conv, ssm_state) = mamba2_forward(p["mixer"], h, cfg.ssm,
                                               chunk=cfg.scan_chunk)
         if mode == "train":
-            return x + y, None
+            return x + shardctx.anchor_batch(y), None
     cache["conv"] = {k: c.to(torch.bfloat16) for k, c in conv.items()}
     cache["ssm"] = ssm_state
-    return x + y, cache
+    return x + shardctx.anchor_batch(y), cache
 
 
 def _apply_attn(cfg: ArchConfig, kind: str, p: dict, x: torch.Tensor, *,
@@ -233,7 +236,7 @@ def _apply_attn(cfg: ArchConfig, kind: str, p: dict, x: torch.Tensor, *,
         o = attention_decode(q, cache["k"], cache["v"], cache_len=pos,
                              window=window, softcap=cfg.attn_softcap,
                              backend=backend)
-    x = x + o.reshape(B, S, H * hd) @ p["wo"]
+    x = x + shardctx.anchor_batch(o.reshape(B, S, H * hd) @ p["wo"])
     h2 = rms_norm(x, p["ln2"])
     if cfg.moe is not None:
         # SiLU experts (the reference's default act), cfg.act's residual
@@ -245,7 +248,7 @@ def _apply_attn(cfg: ArchConfig, kind: str, p: dict, x: torch.Tensor, *,
         y = gelu_mlp(p["mlp"], h2)
     else:
         y = gated_mlp(p["mlp"], h2, cfg.act)
-    return x + y, cache
+    return x + shardctx.anchor_batch(y), cache
 
 
 # --------------------------------------------------------------------------

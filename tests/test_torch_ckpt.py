@@ -139,11 +139,6 @@ def test_restore_sources_match_reference():
             J.choose_restore_sources(jman, jtopo, dst)
 
 
-def test_reshard_for_mesh_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        P.reshard_for_mesh({}, None, None)
-
-
 def test_loader_matches_reference():
     kw = dict(lan_bandwidth=50e9, wan_bandwidth=3e9, storage_capacity=64e9)
     grid, jgrid = (DataGridService(GridTopology(2, 4, **kw)),
