@@ -90,14 +90,17 @@ Phases, each raising on failure (the script then exits non-zero):
    ``SERVE_LAYERS``), granite-moe-1b-a400m (phase 14 (b); its
    routes that differ between the bf16 kernel and plain runs counted by
    ``route_flips``), zamba2-7b (depth ``ZAMBA_TRAIN_LAYERS`` of 81; phase
-   15 (b)) and internvl2-2b at full depth, text-only as the engine serves
-   it (phase 16 (c)) — seeded weights, the two-pod router, 4
+   15 (b)), internvl2-2b at full depth, text-only as the engine serves
+   it (phase 16 (c)), and granite-3-8b at full width and depth (40
+   layers, H 32 on KV 8, hd 128; 16.3 GB of bf16 weights, 32.7 GB in
+   float32) — seeded weights, the two-pod router, 4
    requests of 1,024-token prompts, 16 new tokens — on the kernels, then the
    same model and inputs on the plain route (``backend="plain"``) on the
    card, then both routes again with the weights in float32. Each kernel
    must launch once per step in each layer whose kind runs it
-   (``kernel_layers`` x 17: every layer for gemma3-1b, falcon-mamba-7b and
-   granite, zamba2-7b's 2 shared-block applications of its 18 layers)
+   (``kernel_layers`` x 17: every layer for gemma3-1b, falcon-mamba-7b,
+   granite-moe-1b-a400m, internvl2-2b and granite-3-8b (680), zamba2-7b's
+   2 shared-block applications of its 18 layers)
    on the bf16 kernel run, the plain route never. The float32 prefill logits must agree
    within ``SERVE_TOL_F32``; the bf16 ones within twice the bf16 noise (how
    far the plain route's bf16 logits lie from its float32 ones); the greedy
@@ -234,6 +237,17 @@ Phases, each raising on failure (the script then exits non-zero):
    embeddings a request from the seed (``phase_vlm_prefill``), kernels
    against the plain route by the same rules, its logits moved off the
    text-only prefill's by more than the bf16 tolerance;
+17. training the encoder-decoder and the VLM: (a)
+   ``flash_attention_bwd`` at their training calls (``ENCDEC_BWD_CASES``:
+   whisper-large-v3's encoder layer non-causal at 1,500 frames, its
+   cross-attention, its decoder self-attention; internvl2-2b's layer) as
+   14 (a), bf16 and the float32 route; (b) whisper-large-v3 trained at
+   full width and depth (4 x ``WHISPER_TRAIN_FRAMES`` seeded frames, 187
+   decoder tokens) as 12 (b), its first step also in float32 within
+   ``TRAIN_TOL_F32``; (c) internvl2-2b trained at full width and depth
+   with 256 patch embeddings a row, each bf16 leaf of the kernel route
+   held by its distance from float32 within twice the plain bf16 route's,
+   the float32 first step within ``TRAIN_TOL_F32``;
 18. the mesh (``phase_mesh``): a (1, 1) ``DeviceMesh`` over NCCL at world
    size 1, from an in-process ``HashStore``; (a) gemma3-1b's parameters
    at full width and depth written to a checkpoint, restored and placed
@@ -251,7 +265,36 @@ Phases, each raising on failure (the script then exits non-zero):
    ``MESH_FLOPS_TOL`` of one profiled step's (``torch.profiler``
    ``with_flops`` over ``PROFILED_PRODUCTS`` plus the same formulas over
    the kernels launched, ``kernel_work``), its peak within
-   ``MESH_PEAK_RATIO`` of the measured one.
+   ``MESH_PEAK_RATIO`` of the measured one;
+19. the examples (``repro_torch.examples``) and both flash kernels at hd
+   80; the examples' CPU runs go in a process of their own beside the
+   build and phase 2, waited for before phase 3 (``CPU_EXAMPLES``). (a) ``flash_attention`` at the ~100M
+   gemma3-family trainer's calls (``TRAINER_ATTN_CASES``: B 4, H 8 on KV
+   2, S 256, hd 80, global and window 256, bf16 and float32; one query
+   against 257 slots on the split decode) as phase 8's cases, and the
+   backward at its layers (``TRAINER_BWD_CASES``) as 12 (a); (b)
+   ``train_small_grid`` at its full width (``phase_train_small``): its
+   first step on the kernels against the plain route by
+   :func:`hold_first_step`, then ``TRAINER_STEPS`` steps (100; the
+   example's 200 cut to keep the script inside its time) of 8 x 256
+   tokens in 2 microbatches with a failure at ``TRAINER_FAIL_AT``: one
+   restart, the restored checkpoint bit-equal to the state saved, the
+   last 20 steps' minimum loss ``TRAINER_DROP`` below the first's, 48
+   ``flash_attention`` and 24 ``flash_attention_bwd`` launches a step
+   run; (c) ``serve_grid`` with granite-3-8b at full width and depth:
+   12 routed requests of 8 tokens + 8 new, one at a time, every site and
+   the inter-pod and WAN totals equal to the CPU run, 40 x 9 x 12
+   ``flash_attention`` launches; the same requests on the plain route
+   and both routes again in float32, held by phase 9's rules
+   (``hold_served``) at the first step and by ``hold_steps`` at every
+   later step whose context the runs share (float32 within
+   ``SERVE_TOL_F32``, bf16 within twice the bf16 noise measured there),
+   more than half of the float32 greedy tokens held by their margins;
+   (d) ``quickstart`` (500 jobs, four strategies,
+   ``net_rerate``): card = CPU in every metric, hrs, bhr and lru equal to
+   ``fig4/*/500``; (e) ``elastic_failover`` with gemma3-1b at full width
+   and depth: both discrete-event runs equal to the CPU's, restore sources
+   ``{5}``, every leaf bit-equal after the restore.
 
 The launch counts of each path are reset just before it runs and read just
 after. The second-to-last line is the kernel summary as JSON; the last line
@@ -364,7 +407,8 @@ SERVE = (("gemma3-1b", "flash_attention"), ("falcon-mamba-7b",
                                             "selective_scan"),
          ("granite-moe-1b-a400m", "flash_attention"),
          ("zamba2-7b", "flash_attention"),
-         ("internvl2-2b", "flash_attention"))
+         ("internvl2-2b", "flash_attention"),
+         ("granite-3-8b", "flash_attention"))
 SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW = 4, 1024, 16
 #: kernel route against plain route with float32 weights, at each model's
 #: served depth
@@ -503,6 +547,54 @@ MAMBA_TRAIN_LAYERS = 8
 #: other model at full depth
 SERVE_LAYERS = {"falcon-mamba-7b": MAMBA_TRAIN_LAYERS,
                 "zamba2-7b": ZAMBA_TRAIN_LAYERS}
+#: Phase 19: the ~100M gemma3-family trainer of
+#: ``repro_torch.examples.train_small_grid`` (12 layers, d 640, H 8 on KV
+#: 2, hd 80). (a) ``flash_attention`` at its calls (name, dtype, B, H, KV,
+#: hd, Sq, Skv, window, q_offset, kv_len): a microbatch of 4 rows x 256
+#: tokens in its global layers and its local ones (window 256), and one
+#: query against 257 slots (the split decode at hd 80); the backward at
+#: the same layers (as ``BWD_CASES``)
+TRAINER_ATTN_CASES = (
+    ("~100M trainer global bf16", "bfloat16", 4, 8, 2, 80, 256, 256, None, 0,
+     None),
+    ("~100M trainer local bf16", "bfloat16", 4, 8, 2, 80, 256, 256, 256, 0,
+     None),
+    ("~100M trainer global f32", "float32", 4, 8, 2, 80, 256, 256, None, 0,
+     None),
+    ("~100M trainer decode bf16", "bfloat16", 4, 8, 2, 80, 1, 257, None, 256,
+     257),
+    ("~100M trainer decode f32", "float32", 4, 8, 2, 80, 1, 257, None, 256,
+     257),
+)
+TRAINER_BWD_CASES = tuple(
+    (f"~100M trainer {kind}", dtype, 4, 8, 2, 256, 80, window, None)
+    for kind, window in (("global", None), ("local", 256))
+    for dtype in ("bfloat16", "float32"))
+#: (b) the example's own run (``--batch 8 --seq 256 --fail-at 60``) with
+#: its steps cut from 200 to 100 (at 315-394 ms a step and 1.3 GB a
+#: checkpoint, 200 took 114 s of phase 19 on an H100); the loss must fall
+#: by ``TRAINER_DROP`` (the last 20 steps' minimum below the first step's
+#: loss, ``tests/test_system.py``'s margin)
+TRAINER_STEPS, TRAINER_BATCH, TRAINER_SEQ, TRAINER_FAIL_AT = 100, 8, 256, 60
+TRAINER_EXAMPLE_STEPS = 200
+TRAINER_DROP = 0.15
+#: The examples on the CPU (phase 19 (c)-(e) compare the card's runs with
+#: them), in a process of their own beside the build and phase 2, waited
+#: for before phase 3 (so no timed phase runs beside it): quickstart,
+#: elastic_failover (its discrete-event runs) and serve_grid (its routing;
+#: the reduced config's, since routing reads only the prefix and the prompt
+#: length); the JSON of what each returns goes to ``argv[1]``
+CPU_EXAMPLES = """import json, sys, time
+t0 = time.perf_counter()
+from repro_torch.examples import elastic_failover, quickstart, serve_grid
+out = {"quickstart": quickstart.main(["--device", "cpu"]),
+       "elastic_failover": elastic_failover.main(["--reduced", "--device",
+                                                  "cpu"]),
+       "serve_grid": serve_grid.main(["--reduced", "--device", "cpu"])}
+del out["serve_grid"]["logits"]
+out["wall_s"] = time.perf_counter() - t0
+json.dump(out, open(sys.argv[1], "w"))
+"""
 #: The first version of ``selective_scan_bwd`` (one 256-thread block an SM,
 #: two exponentials a state a step): its source and the header it was
 #: written against, built beside the current one and timed in turns with
@@ -2649,49 +2741,28 @@ def phase_train_mamba(dev) -> dict:
                       ("selective_scan", "selective_scan_bwd"))
 
 
-def _train_run(dev, cfg, phase: str, kernels: tuple, seq: int = TRAIN_S,
-               embeds=None, tol_f32: float | None = None,
-               vs_f32: bool = False) -> dict:
-    """A full-width training run on ``TRAIN_B`` rows of ``seq`` tokens
-    (``launch.train.family_batch``: for the encoder-decoder ``seq``
-    frames and ``seq // 8`` decoder tokens, for a VLM the patch
-    embeddings; ``embeds`` the frames or patch embeddings, else the
-    reference's ones): the first step on the kernels against
-    ``backend="plain"`` (and the plain route in float32; with ``tol_f32``
-    also the kernels against the plain route in float32, held within it,
-    which a MoE config does at ``TRAIN_TOL`` since bf16 routing flips move
-    some leaves as far as bf16 itself does), then ``TRAIN_STEPS`` steps on
-    a repeated batch under the supervisor; the forward kernel of
-    ``kernels`` must launch twice an attention call a step, the backward
-    once, nothing else. With ``vs_f32`` each bf16 leaf of the kernel route
-    is held within twice the plain bf16 route's distance from float32, by
-    its own distance from float32 (phase 9's rule for bf16 logits), not
-    against the plain bf16 route. Returns step times, memory, the launches
-    of the steps and one profiled step by family."""
-    import tempfile
-
+def hold_first_step(cfg, tcfg, params: dict, b: dict, bwd_name: str,
+                    calls: int, tol_f32: float | None = None,
+                    vs_f32: bool = False) -> dict:
+    """A training run's first step (``grad_fn`` on the batch ``b``) on the
+    kernels against ``backend="plain"`` on the card: the loss and every
+    gradient leaf within ``TRAIN_TOL`` (relative L2), the plain route in
+    float32 beside (its bf16 distance printed); ``bwd_name`` launched
+    ``calls`` times on the kernel run, nothing else then and nothing on the
+    plain run. With ``tol_f32`` also the kernels against the plain route in
+    float32, held within it (a MoE config does this at ``TRAIN_TOL``: bf16
+    routing flips move some leaves as far as bf16 itself does, and a
+    flipped layer's feed-forward leaves are held within twice the plain
+    route's bf16 distance); with ``vs_f32`` each bf16 leaf of the kernel
+    route is held within twice the plain bf16 route's distance from
+    float32, by its own distance from float32 (phase 9's rule for bf16
+    logits). Raises on a breach; returns the numbers."""
     import torch
 
     from repro_torch.checkpoint.ckpt import _leaf_paths
-    from repro_torch.fault.failures import TrainingSupervisor
     from repro_torch.kernels import _cuda
-    from repro_torch.launch import train as launch_train
     from repro_torch.train.optimizer import tree_leaves, tree_map
     from repro_torch.train.train_step import grad_fn
-
-    fwd_name, bwd_name = kernels
-    layers = kernel_layers(cfg, fwd_name)
-    t_phase = time.perf_counter()
-    torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    run = launch_train.build(cfg, batch=TRAIN_B, seq=seq,
-                             steps=TRAIN_STEPS, device=dev)
-    torch.cuda.synchronize(dev)
-    init_s = time.perf_counter() - t0
-    batch, _ = run["loader"].next_batch()
-    b = launch_train.family_batch(cfg, batch, device=dev, embeds=embeds)
-    tokens = TRAIN_B * seq    # a row's positions (whisper: its frames)
-    params = run.pop("params")
 
     # the first step's loss and gradients: kernels, plain, plain in float32
     # (each loss read as it comes); for a MoE config the routes of both
@@ -2706,32 +2777,32 @@ def _train_run(dev, cfg, phase: str, kernels: tuple, seq: int = TRAIN_S,
             routes["auto"] = watching.enter_context(watch_routes()).calls
         nll["kernels"] = watching.enter_context(watch_nll())
         _cuda.reset_launches()
-        lk, mk, gk = grad_fn(cfg, run["tcfg"], params, b, backend="auto")
+        lk, mk, gk = grad_fn(cfg, tcfg, params, b, backend="auto")
         lk = float(lk)
         hold_launches = dict(_cuda.LAUNCHES)
     with contextlib.ExitStack() as watching:
         if moe:
             routes["plain"] = watching.enter_context(watch_routes()).calls
         nll["plain"] = watching.enter_context(watch_nll())
-        lp, mp, gp = grad_fn(cfg, run["tcfg"], params, b, backend="plain")
+        lp, mp, gp = grad_fn(cfg, tcfg, params, b, backend="plain")
         lp = float(lp)
-    if hold_launches[bwd_name] != layers or any(
+    if hold_launches[bwd_name] != calls or any(
             _cuda.LAUNCHES[n] != c for n, c in hold_launches.items()):
         raise AssertionError(f"first step launches {hold_launches}, plain "
                              f"route {_cuda.LAUNCHES}")
     p32 = tree_map(lambda t: t.float(), params)
     with watch_nll() as nll["plain f32"]:
-        l32, m32, g32 = grad_fn(cfg, run["tcfg"], p32, b, backend="plain")
+        l32, m32, g32 = grad_fn(cfg, tcfg, p32, b, backend="plain")
     l32 = float(l32)
     if hold_f32:
         # the first step also in float32, kernels against plain: the
         # float32 backward runs (and routes rarely flip)
         _cuda.reset_launches()
         with watch_nll() as nll["kernels f32"]:
-            lk32, mk32, gk32 = grad_fn(cfg, run["tcfg"], p32, b,
+            lk32, mk32, gk32 = grad_fn(cfg, tcfg, p32, b,
                                        backend="auto")
         lk32 = float(lk32)
-        if _cuda.LAUNCHES[bwd_name] != layers:
+        if _cuda.LAUNCHES[bwd_name] != calls:
             raise AssertionError(f"float32 first step launches "
                                  f"{dict(_cuda.LAUNCHES)}")
     del p32
@@ -2775,7 +2846,7 @@ def _train_run(dev, cfg, phase: str, kernels: tuple, seq: int = TRAIN_S,
     worst = max(range(len(held)), key=lambda i: held[i] / tols[i])
     rest = [i for i, t in enumerate(tols) if t == TRAIN_TOL]
     print(f"[train] {cfg.name} full width, {cfg.n_layers} layers, params="
-          f"{sum(t.numel() for t in tree_leaves(params))} init_s={init_s!r} "
+          f"{sum(t.numel() for t in tree_leaves(params))} "
           f"first step: loss kernels={lk!r} plain={lp!r} "
           f"plain f32={l32!r} rel err={loss_err!r}; gradient leaves "
           f"{len(err)}: max rel L2 kernels vs plain={max(err)!r} "
@@ -2831,6 +2902,56 @@ def _train_run(dev, cfg, phase: str, kernels: tuple, seq: int = TRAIN_S,
                              f"{first32} (tol {tol_f32})")
     del gk, gp, g32
     torch.cuda.empty_cache()
+    return {"loss_rel_err": loss_err, "moe_aux_rel_err": aux_err,
+            "leaves_held_to_twice_bf16_noise": {
+                names[i]: (err[i], tols[i]) for i in moved},
+            "flipped_tokens_by_layer": flipped, "float32": first32,
+            "max_leaf_rel_l2": err[worst],
+            "median_leaf_rel_l2": statistics.median(err),
+            "plain_bf16_vs_f32_max": max(noise),
+            "plain_bf16_vs_f32_median": statistics.median(noise),
+            "tol": TRAIN_TOL}
+
+
+def _train_run(dev, cfg, phase: str, kernels: tuple, seq: int = TRAIN_S,
+               embeds=None, tol_f32: float | None = None,
+               vs_f32: bool = False) -> dict:
+    """A full-width training run on ``TRAIN_B`` rows of ``seq`` tokens
+    (``launch.train.family_batch``: for the encoder-decoder ``seq``
+    frames and ``seq // 8`` decoder tokens, for a VLM the patch
+    embeddings; ``embeds`` the frames or patch embeddings, else the
+    reference's ones): the first step held by :func:`hold_first_step`
+    (with ``tol_f32`` and ``vs_f32``), then ``TRAIN_STEPS`` steps on a
+    repeated batch under the supervisor; the forward kernel of ``kernels``
+    must launch twice an attention call a step, the backward once,
+    nothing else. Returns step times, memory, the launches of the steps
+    and one profiled step by family."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.fault.failures import TrainingSupervisor
+    from repro_torch.kernels import _cuda
+    from repro_torch.launch import train as launch_train
+
+    fwd_name, bwd_name = kernels
+    layers = kernel_layers(cfg, fwd_name)
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    run = launch_train.build(cfg, batch=TRAIN_B, seq=seq,
+                             steps=TRAIN_STEPS, device=dev)
+    torch.cuda.synchronize(dev)
+    init_s = time.perf_counter() - t0
+    print(f"[train] {cfg.name} built (parameters, optimizer state, "
+          f"loader) in init_s={init_s!r}")
+    batch, _ = run["loader"].next_batch()
+    b = launch_train.family_batch(cfg, batch, device=dev, embeds=embeds)
+    tokens = TRAIN_B * seq    # a row's positions (whisper: its frames)
+    params = run.pop("params")
+
+    first = hold_first_step(cfg, run["tcfg"], params, b, bwd_name, layers,
+                            tol_f32=tol_f32, vs_f32=vs_f32)
 
     # TRAIN_STEPS steps on the repeated batch, no checkpoint written
     step_fn = launch_train.make_step_fn(run["train_step"],
@@ -2919,18 +3040,7 @@ def _train_run(dev, cfg, phase: str, kernels: tuple, seq: int = TRAIN_S,
             "losses": losses, "step_ms": 1e3 * step_s,
             "step_ms_all": [1e3 * x for x in times],
             "tokens_per_s": tokens / step_s, "peak_bytes": peak,
-            "first_step": {"loss_rel_err": loss_err,
-                           "moe_aux_rel_err": aux_err,
-                           "leaves_held_to_twice_bf16_noise": {
-                               names[i]: (err[i], tols[i]) for i in moved},
-                           "flipped_tokens_by_layer": flipped,
-                           "float32": first32,
-                           "max_leaf_rel_l2": err[worst],
-                           "median_leaf_rel_l2": statistics.median(err),
-                           "plain_bf16_vs_f32_max": max(noise),
-                           "plain_bf16_vs_f32_median":
-                               statistics.median(noise),
-                           "tol": TRAIN_TOL},
+            "first_step": first,
             "profiled_step": {"wall_ms": prof_ms, "busy_ms": busy,
                               "busy_share_of_median_step": share,
                               "family_ms": {k: v / 1e3
@@ -3901,6 +4011,393 @@ def phase_mesh(dev) -> dict:
             "dryrun_wall_s": rec["wall_s"], "phase_s": wall}
 
 
+def start_cpu_examples(out_path: str) -> subprocess.Popen:
+    """The examples on the CPU (``CPU_EXAMPLES``) in their own process,
+    on one thread at a lower priority (so the build beside it keeps its
+    pace); its output goes to ``out_path + ".log"``. The process is killed
+    at exit if it is still running."""
+    import atexit
+
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1",
+               PYTHONPATH=os.pathsep.join(
+                   [os.path.join(ROOT, "src")] + [p for p in os.environ.get(
+                       "PYTHONPATH", "").split(os.pathsep) if p]))
+    log = open(out_path + ".log", "w")
+    proc = subprocess.Popen([sys.executable, "-c", CPU_EXAMPLES, out_path],
+                            cwd=ROOT, env=env, stdout=log,
+                            stderr=subprocess.STDOUT,
+                            preexec_fn=lambda: os.nice(10))
+    log.close()
+    atexit.register(proc.kill)
+    return proc
+
+
+def load_cpu_examples(proc: subprocess.Popen, out_path: str) -> dict:
+    """Wait for :func:`start_cpu_examples`' process; its results."""
+    t0 = time.perf_counter()
+    proc.wait(timeout=600)
+    waited = time.perf_counter() - t0
+    with open(out_path + ".log") as f:
+        log = f.read()
+    if proc.returncode:
+        raise AssertionError(f"the examples on the CPU exited "
+                             f"{proc.returncode}: {log[-3000:]}")
+    with open(out_path) as f:
+        out = json.load(f)
+    print(f"[examples] the CPU runs took wall_s={out['wall_s']!r}, beside "
+          f"the build and phase 2; phase 3 waited {waited!r} s for them")
+    return out
+
+
+def phase_trainer_kernels(dev) -> dict:
+    """Phase 19 (a): ``flash_attention`` at the ~100M trainer's calls
+    (``TRAINER_ATTN_CASES``, as phase 8's cases: hd 80 on the bf16
+    tensor-core, float32 SIMT and split decode routes) and the backward at
+    its layers (``TRAINER_BWD_CASES``, as 12 (a): the forward with lse,
+    bf16 and the float32 route, two calls bit-equal)."""
+    import numpy as np
+
+    rng = np.random.default_rng(19)
+    fwd = [_attn_case(dev, rng, name, dtype, B, H, KV, hd, sq, skv,
+                      window=window, q_offset=q_offset, kv_len=kv_len)
+           for (name, dtype, B, H, KV, hd, sq, skv, window, q_offset,
+                kv_len) in TRAINER_ATTN_CASES]
+    return {"flash_attention": fwd,
+            **phase_train_kernels(dev, TRAINER_BWD_CASES, "19 (a)")}
+
+
+def phase_train_small(dev) -> dict:
+    """Phase 19 (b): ``repro_torch.examples.train_small_grid`` on the card
+    at its full width (12 layers, d 640, hd 80, vocab 32,000): its first
+    step on the kernels held against the plain route
+    (:func:`hold_first_step`, two microbatches of 4 x 256 tokens), then its
+    own run (``train_small_grid.train``: ``TRAINER_STEPS`` steps of
+    ``TRAINER_BATCH`` x ``TRAINER_SEQ`` on the grid-placed shards, a
+    checkpoint every 25 steps, a node failure at ``TRAINER_FAIL_AT``): one
+    restart, the restored state bit-equal to the state that was saved,
+    the loss falling by ``TRAINER_DROP``, ``flash_attention`` twice and
+    ``flash_attention_bwd`` once an attention layer a microbatch a step run
+    and nothing else."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.checkpoint.ckpt import restore_checkpoint
+    from repro_torch.examples import train_small_grid as ex
+    from repro_torch.kernels import _cuda
+    from repro_torch.launch import train as launch_train
+    from repro_torch.train.optimizer import tree_leaves
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    cfg = ex.make_100m_config()
+    calls = kernel_layers(cfg, "flash_attention") * ex.MICROBATCHES
+    run = launch_train.build(cfg, batch=TRAINER_BATCH, seq=TRAINER_SEQ,
+                             steps=TRAINER_STEPS,
+                             microbatches=ex.MICROBATCHES, device=dev,
+                             n_shards=ex.N_SHARDS,
+                             warmup_steps=ex.WARMUP_STEPS)
+    batch, _ = run["loader"].next_batch()
+    first = hold_first_step(cfg, run["tcfg"], run["params"],
+                            launch_train.family_batch(cfg, batch, device=dev),
+                            "flash_attention_bwd", calls)
+    del run
+    torch.cuda.empty_cache()
+
+    restore_at = TRAINER_FAIL_AT // ex.CKPT_EVERY * ex.CKPT_EVERY
+    saved, stamps, seen = [], [time.perf_counter()], []
+
+    def on_step(i, state):
+        # the supervisor checkpoints the last result of step restore_at - 1
+        # (a straggler's re-issue replaces the first); the copy stays on the
+        # card, so the supervisor's step time barely sees it
+        stamps.append(time.perf_counter())
+        seen.append(i)
+        if i + 1 == restore_at:
+            saved[:] = [t.detach().clone() for t in tree_leaves(state)]
+
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.cuda.reset_peak_memory_stats(dev)
+        _cuda.reset_launches()                     # the main path
+        out = ex.train(cfg, steps=TRAINER_STEPS, batch=TRAINER_BATCH,
+                       seq=TRAINER_SEQ, ckpt_dir=tmp,
+                       fail_at=TRAINER_FAIL_AT, device=dev, on_step=on_step)
+        torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - stamps[0]
+        launches = dict(_cuda.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated(dev)
+        restored, _ = restore_checkpoint(tmp, restore_at, like=out["state"],
+                                         device=dev)
+        written = sorted(os.listdir(tmp))
+    bits = lambda t: (t.view(torch.int16)  # noqa: E731
+                      if t.dtype == torch.bfloat16 else t)
+    same = [a.device == dev and a.dtype == b.dtype
+            and torch.equal(bits(a), bits(b))
+            for a, b in zip(tree_leaves(restored), saved)]
+    del out["state"], restored, saved
+    torch.cuda.empty_cache()
+    hist = out["history"]
+    losses = [h["loss"] for h in hist]
+    runs = out["steps_run"] + out["stragglers_mitigated"]
+    step_s = statistics.median(b - a for a, b in zip(stamps, stamps[1:]))
+    fwd, bwd = launches["flash_attention"], launches["flash_attention_bwd"]
+    others = {n: c for n, c in launches.items()
+              if c and n not in ("flash_attention", "flash_attention_bwd")}
+    print(f"[train-small] {cfg.name}-100m (12 layers, d 640, hd 80) "
+          f"{TRAINER_STEPS} steps (cut from the example's "
+          f"{TRAINER_EXAMPLE_STEPS}) B={TRAINER_BATCH} S={TRAINER_SEQ} in "
+          f"{ex.MICROBATCHES} microbatches, failure at {TRAINER_FAIL_AT}: "
+          f"restarts={out['restarts']} steps_wasted={out['steps_wasted']} "
+          f"steps_run={out['steps_run']} (re-issued past the deadline "
+          f"{out['stragglers_mitigated']} at steps "
+          f"{[i for i, j in zip(seen, seen[1:]) if i == j]}); restored step "
+          f"{restore_at} "
+          f"bit-equal: {sum(same)}/{len(same)} leaves; checkpoints "
+          f"{written}; loss first={losses[0]!r} last={losses[-1]!r} last "
+          f"20 min={min(losses[-20:])!r}; step_ms median={1e3 * step_s!r} "
+          f"tokens_per_s={TRAINER_BATCH * TRAINER_SEQ / step_s!r} "
+          f"max_memory_allocated={peak} flash_attention per step run="
+          f"{fwd / runs!r} flash_attention_bwd per step run={bwd / runs!r}; "
+          f"grid {out['grid']}; wall_s={wall!r}")
+    for h in hist[:: max(1, len(hist) // 10)]:
+        print(f"[train-small] step {h['step']:4d}  loss {h['loss']:.4f}  "
+              f"gnorm {h['grad_norm']:.2f}  lr {h['lr']:.2e}")
+    if (out["restarts"] != 1 or not same or not all(same)
+            or out["steps_wasted"] != TRAINER_FAIL_AT - restore_at
+            or not all(map(math.isfinite, losses))
+            or not min(losses[-20:]) < losses[0] - TRAINER_DROP):
+        raise AssertionError(f"the ~100M trainer: restarts {out['restarts']}"
+                             f", wasted {out['steps_wasted']}, bit-equal "
+                             f"{sum(same)}/{len(same)}, losses {losses}")
+    if fwd != 2 * calls * runs or bwd != calls * runs or others:
+        raise AssertionError(f"the ~100M trainer's launches {launches} over "
+                             f"{runs} step runs (want flash_attention 2 x "
+                             f"{calls} and flash_attention_bwd {calls} a "
+                             "step run, nothing else)")
+    return {"arch": f"{cfg.name}-100m", "layers": cfg.n_layers,
+            "launches": launches, "step_runs": runs,
+            "restarts": out["restarts"], "steps_wasted": out["steps_wasted"],
+            "restored_bit_equal_leaves": sum(same), "leaves": len(same),
+            "losses_first_last": (losses[0], losses[-1]),
+            "last20_min": min(losses[-20:]), "step_ms": 1e3 * step_s,
+            "tokens_per_s": TRAINER_BATCH * TRAINER_SEQ / step_s,
+            "peak_bytes": peak, "first_step": first, "grid": out["grid"],
+            "wall_s": wall, "phase_s": time.perf_counter() - t_phase}
+
+
+def shared_steps(*runs) -> "np.ndarray":
+    """(B, n) mask of the steps whose earlier tokens are the same in every
+    run of ``runs`` (each with ``tokens`` (B, n)): their logits saw the
+    same context."""
+    import numpy as np
+
+    toks = [np.asarray(r["tokens"]) for r in runs]
+    same = np.all([t == toks[0] for t in toks], axis=0)
+    first = np.ones((same.shape[0], 1), dtype=bool)
+    return np.cumprod(np.concatenate([first, same[:, :-1]], axis=1),
+                      axis=1).astype(bool)
+
+
+def hold_steps(name: str, k: dict, p: dict, k32: dict, p32: dict) -> dict:
+    """Phase 9's rules at every step of a served run, not only the first:
+    at each step whose context the float32 runs share
+    (:func:`shared_steps`), the kernel route's float32 logits within
+    ``SERVE_TOL_F32`` + ``SERVE_TOL_F32`` x |logit| of the plain route's;
+    at each step whose context the kernel and plain bf16 runs and the
+    plain float32 run share, the bf16 logits within twice the bf16 noise
+    (how far the plain route's bf16 logits lie from its float32 ones over
+    those steps). Raises on a breach; returns the errors, the limits and
+    the number of steps held."""
+    import torch
+
+    dev = k["logits"].device
+    mask32 = torch.as_tensor(shared_steps(k32, p32), device=dev)
+    got, want = k32["logits"][mask32].float(), p32["logits"][mask32].float()
+    err32 = float((got - want).abs().max())
+    if not torch.allclose(got, want, atol=SERVE_TOL_F32, rtol=SERVE_TOL_F32):
+        raise AssertionError(f"{name} f32 logits over {int(mask32.sum())} "
+                             f"shared steps: kernel route off the plain "
+                             f"route by {err32} (atol, rtol {SERVE_TOL_F32})")
+    mask = torch.as_tensor(shared_steps(k, p, p32), device=dev)
+    plain = p["logits"][mask].float()
+    noise = float((plain - p32["logits"][mask].float()).abs().max())
+    err = float((k["logits"][mask].float() - plain).abs().max())
+    if not err <= 2 * noise:
+        raise AssertionError(f"{name} bf16 logits over {int(mask.sum())} "
+                             f"shared steps: kernel route off the plain route "
+                             f"by {err} > {2 * noise} (2 x the bf16 noise "
+                             f"{noise})")
+    return {"err_f32": err32, "steps_f32": int(mask32.sum()), "err": err,
+            "tol": 2 * noise, "noise": noise, "steps": int(mask.sum())}
+
+
+def phase_serve_grid(dev, cpu: dict) -> dict:
+    """Phase 19 (c): ``repro_torch.examples.serve_grid`` on the card with
+    granite-3-8b at full width and depth (bf16 weights from seed 0): its 12
+    routed requests on the kernels, then on the plain route, then both
+    again with the same weights in float32; every request's site and the
+    grid's inter-pod count and WAN bytes equal to the example's CPU run
+    (``cpu``), ``flash_attention`` once a layer a step on the bf16 kernel
+    run and nothing else; the logits held by phase 9's rules
+    (:func:`hold_served`: the first step, the greedy tokens by
+    ``greedy_agreement``, more than half of the float32 tokens held by
+    their margins) and by :func:`hold_steps` at every later step whose
+    context the runs share."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.examples import serve_grid as ex
+    from repro_torch.kernels import _cuda
+    from repro_torch.models import model as M
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    cfg = get_config(ex.ARCH)
+    params = M.init_params(cfg, seed=0, device=dev)
+    _cuda.reset_launches()                         # the main path
+    k = ex.serve_requests(cfg, params)
+    launches = dict(_cuda.LAUNCHES)
+    p = ex.serve_requests(cfg, params, backend="plain")
+    params32 = to_f32(params)
+    del params
+    k32 = ex.serve_requests(cfg, params32)
+    p32 = ex.serve_requests(cfg, params32, backend="plain")
+    del params32
+    want = cfg.n_layers * (1 + ex.NEW_TOKENS) * ex.N_REQUESTS
+    others = {n: c for n, c in launches.items()
+              if c and n != "flash_attention"}
+    sites = [r["site"] for r in k["requests"]]
+    runs = {}
+    for label, r in (("k", k), ("p", p), ("k32", k32), ("p32", p32)):
+        runs[label] = {"tokens": np.array([q["tokens"]
+                                           for q in r["requests"]]),
+                       "logits": r["logits"]}
+        if ([q["site"] for q in r["requests"]] != sites
+                or r["logits"].shape != (ex.N_REQUESTS, ex.NEW_TOKENS,
+                                         cfg.vocab)
+                or not bool(torch.isfinite(r["logits"]).all())):
+            raise AssertionError(f"serve_grid {label}: sites or logits "
+                                 f"{tuple(r['logits'].shape)} off")
+    if launches["flash_attention"] != want or others:
+        raise AssertionError(f"serve_grid: launches {launches} (want "
+                             f"flash_attention {want})")
+    if (sites != [r["site"] for r in cpu["requests"]]
+            or (k["inter_comms"], k["wan_bytes"]) != (cpu["inter_comms"],
+                                                      cpu["wan_bytes"])):
+        raise AssertionError(f"serve_grid sites {sites}, inter-pod "
+                             f"{k['inter_comms']}, WAN {k['wan_bytes']} "
+                             f"against the CPU run's {cpu}")
+    err32, held32, err, tol, noise, held = hold_served(
+        cfg.name, runs["k"], runs["p"], runs["k32"], runs["p32"])
+    steps = hold_steps(cfg.name, runs["k"], runs["p"], runs["k32"],
+                       runs["p32"])
+    tokens = runs["k"]["tokens"]
+    if not 2 * held32 > tokens.size:
+        raise AssertionError(f"serve_grid: the float32 greedy tokens held "
+                             f"by their margins {held32} of {tokens.size}")
+    equal = int((tokens == runs["p"]["tokens"]).sum())
+    equal32 = int((runs["k32"]["tokens"] == runs["p32"]["tokens"]).sum())
+    del k["logits"], p["logits"], k32["logits"], p32["logits"], runs
+    torch.cuda.empty_cache()
+    print(f"[serve-grid] {cfg.name} full width, {cfg.n_layers} layers: "
+          f"{ex.N_REQUESTS} requests of {ex.PROMPT} tokens + "
+          f"{ex.NEW_TOKENS} new, one at a time; sites {sites} (CPU run's "
+          f"equal), inter-pod {k['inter_comms']}, WAN {k['wan_bytes']!r} B; "
+          f"flash_attention launches {launches['flash_attention']} (= "
+          f"{cfg.n_layers} x {1 + ex.NEW_TOKENS} x {ex.N_REQUESTS}); first "
+          f"step: f32 logits max_abs_err={err32!r} (tol {SERVE_TOL_F32}), "
+          f"bf16 max_abs_err={err!r} (tol {tol!r} = 2 x bf16 noise "
+          f"{noise!r}); every shared step: f32 max_abs_err="
+          f"{steps['err_f32']!r} over {steps['steps_f32']} steps, bf16 "
+          f"max_abs_err={steps['err']!r} (tol {steps['tol']!r}) over "
+          f"{steps['steps']} steps; tokens held f32={held32} bf16={held}, "
+          f"equal f32={equal32} bf16={equal} of {tokens.size}; prefill s in "
+          f"all={k['prefill_s']!r} decode s in all={k['decode_s']!r} (plain "
+          f"{p['prefill_s']!r}, {p['decode_s']!r}; f32 kernels "
+          f"{k32['prefill_s']!r}, {k32['decode_s']!r}, plain "
+          f"{p32['prefill_s']!r}, {p32['decode_s']!r}); tokens: "
+          f"{tokens.tolist()}")
+    return {"launches": launches["flash_attention"], "sites": sites,
+            "inter_comms": k["inter_comms"], "wan_bytes": k["wan_bytes"],
+            "logit_err_f32": err32, "logit_err": err, "logit_tol": tol,
+            "shared_steps": steps, "held": held, "held_f32": held32,
+            "equal": equal, "equal_f32": equal32,
+            "prefill_s": k["prefill_s"], "decode_s": k["decode_s"],
+            "decode_ms_per_token": 1e3 * k["decode_s"]
+            / (ex.N_REQUESTS * ex.NEW_TOKENS),
+            "phase_s": time.perf_counter() - t_phase}
+
+
+def _same_numbers(name: str, got: dict, want: dict) -> None:
+    """Every entry of ``want`` equal in ``got`` (floats bit for bit)."""
+    diff = {k: (got.get(k), v) for k, v in want.items() if got.get(k) != v}
+    if diff:
+        raise AssertionError(f"{name}: (got, want) differ at {diff}")
+
+
+def phase_quickstart(dev, cpu: dict) -> dict:
+    """Phase 19 (d): ``repro_torch.examples.quickstart`` on the card (the
+    paper's grid, 500 jobs, four strategies, ``net="numpy"``: the
+    ``net_rerate`` kernel): every strategy's metrics equal to the
+    example's CPU run (``cpu``), hrs, bhr and lru bit-equal to
+    ``tests/golden_metrics.json``'s ``fig4/*/500``."""
+    from repro_torch.examples import quickstart as ex
+    from repro_torch.kernels import _cuda
+
+    t_phase = time.perf_counter()
+    with open(os.path.join(ROOT, "tests", "golden_metrics.json")) as f:
+        golden = json.load(f)["metrics"]
+    _cuda.reset_launches()                         # the main path
+    card = ex.main(["--device", str(dev)])
+    launches = {n: c for n, c in _cuda.LAUNCHES.items() if c}
+    wall = time.perf_counter() - t_phase
+    metrics = ("avg_job_time", "avg_inter_comms", "total_wan_gb", "makespan")
+    for strat in ex.STRATEGIES:
+        got, want = card["results"][strat], cpu["results"][strat]
+        _same_numbers(f"quickstart {strat} card vs CPU", got, want)
+        if strat != "noreplication":
+            _same_numbers(f"quickstart {strat} vs fig4/{strat}/500", got,
+                          {m: golden[f"fig4/{strat}/500"][m]
+                           for m in metrics})
+    if not launches.get("net_rerate") or set(launches) != {"net_rerate"}:
+        raise AssertionError(f"quickstart launches {launches}")
+    print(f"[quickstart] card = CPU in every metric of the four strategies, "
+          f"hrs/bhr/lru = fig4/*/500; HRS over BHR "
+          f"{card['hrs_over_bhr_pct']!r}%; launches {launches}; "
+          f"wall_s={wall!r}")
+    return {"launches": launches, "wall_s": wall,
+            "hrs_over_bhr_pct": card["hrs_over_bhr_pct"]}
+
+
+def phase_elastic(dev, cpu: dict) -> dict:
+    """Phase 19 (e): ``repro_torch.examples.elastic_failover`` on the card
+    with gemma3-1b at full width and depth: both discrete-event runs equal
+    to the example's CPU run (``cpu``), the restore sources ``{5}``, every
+    leaf bit-equal after the restore."""
+    from repro_torch.examples import elastic_failover as ex
+    from repro_torch.kernels import _cuda
+
+    t_phase = time.perf_counter()
+    _cuda.reset_launches()                         # the main path
+    card = ex.main(["--device", str(dev)])
+    launches = {n: c for n, c in _cuda.LAUNCHES.items() if c}
+    for run in ("healthy", "with_failures"):
+        _same_numbers(f"elastic_failover {run} card vs CPU",
+                      card["des"][run], cpu["des"][run])
+    if (card["restore_sources"] != [5] or not card["bit_exact"]
+            or card["layers"] != 26 or not launches.get("net_rerate")):
+        raise AssertionError(f"elastic_failover: {card}, launches "
+                             f"{launches}")
+    wall = time.perf_counter() - t_phase
+    print(f"[elastic] {card['arch']} ({card['layers']} layers): DES card = "
+          f"CPU {card['des']}; {card['chunks']} chunks restored from sites "
+          f"{card['restore_sources']}, {card['leaves']} leaves bit-exact; "
+          f"launches {launches}; wall_s={wall!r}")
+    return {"launches": launches, "chunks": card["chunks"],
+            "leaves": card["leaves"], "wall_s": wall}
+
+
 def ptxas_report(log: str) -> list:
     """``(kernel, "N registers, S bytes spill stores, L bytes spill
     loads")`` for each entry function of one ``nvcc -Xptxas -v`` log."""
@@ -4043,6 +4540,12 @@ def main() -> int:
     print(f"[card] torch.cuda.get_device_name: {torch.cuda.get_device_name(0)}"
           f" torch {torch.__version__} cuda {torch.version.cuda}")
 
+    # the examples' CPU runs, beside the build and phase 2
+    import tempfile
+
+    examples_dir = tempfile.TemporaryDirectory()
+    examples_out = os.path.join(examples_dir.name, "examples.json")
+    examples_cpu = start_cpu_examples(examples_out)
     first_build = start_first_scan_bwd()
     build_s = _cuda.build()
     print(f"[build] {', '.join(_cuda.KERNELS)} built in {build_s:.2f}s")
@@ -4063,6 +4566,8 @@ def main() -> int:
                              f"{spills}")
     sass = phase_sass(first_lib)
     occupancy = phase_scan_bwd_occupancy(dev)
+    cpu_examples = load_cpu_examples(examples_cpu, examples_out)
+    examples_dir.cleanup()
 
     kernels = phase_kernels(dev)
     dense = phase_dense_kernels(dev)
@@ -4102,7 +4607,15 @@ def main() -> int:
     print(f"[encdec] phase 17 (a, b, c) wall_s="
           f"{time.perf_counter() - t17!r}")
     mesh = phase_mesh(dev)
-    model["flash_attention"] += encdec_kernels
+    t19 = time.perf_counter()
+    trainer_kernels = phase_trainer_kernels(dev)
+    trainer = phase_train_small(dev)
+    served_grid = phase_serve_grid(dev, cpu_examples["serve_grid"])
+    quick = phase_quickstart(dev, cpu_examples["quickstart"])
+    elastic = phase_elastic(dev, cpu_examples["elastic_failover"])
+    print(f"[examples] phase 19 (a-e) wall_s={time.perf_counter() - t19!r}")
+    model["flash_attention"] += encdec_kernels + trainer_kernels[
+        "flash_attention"]
     launches = {"net_rerate": golden["net_rerate"],
                 "event_engine": scale["event_engine"]}
     by_path = {name: {p: paths[p][name] for p, ks in PATH_KERNELS.items()
@@ -4119,6 +4632,8 @@ def main() -> int:
     by_serving["flash_attention"][WHISPER] = whisper["launches"]
     by_serving["flash_attention"]["internvl2-2b vision prefill"] = \
         served["internvl2-2b"]["vision_prefill"]["launches"]
+    by_serving["flash_attention"]["serve_grid granite-3-8b"] = \
+        served_grid["launches"]
     for name, counts in by_serving.items():
         launches[name] = sum(counts.values())
 
@@ -4142,7 +4657,9 @@ def main() -> int:
     summary = []
     # net_rerate's own path is phase 4; the slice-2 paths run it too
     rerate_by_path = {"golden": launches["net_rerate"],
-                      **{p: paths[p]["net_rerate"] for p in PATHS}}
+                      **{p: paths[p]["net_rerate"] for p in PATHS},
+                      "quickstart": quick["launches"]["net_rerate"],
+                      "elastic_failover": elastic["launches"]["net_rerate"]}
     # event_engine: the mean-dirty smoke shape is its path's;
     # net_rerate: grid_500_evict's own per-call shape
     for name in ("event_engine", "net_rerate"):
@@ -4228,7 +4745,8 @@ def main() -> int:
     # its launches are the full-width training run's (phase 12 (b))
     later = (moe_kernels["flash_attention_bwd"]
              + zamba_kernels["flash_attention_bwd"]
-             + encdec_bwd["flash_attention_bwd"])
+             + encdec_bwd["flash_attention_bwd"]
+             + trainer_kernels["flash_attention_bwd"])
     rows = (train_kernels["flash_attention_bwd"]
             + [r for r in later if r["dtype"] == "bfloat16"])
     bwd_f32 = [r for r in later if r["dtype"] == "float32"]
@@ -4236,7 +4754,8 @@ def main() -> int:
     trained = (("gemma3-1b", train), ("granite-moe-1b-a400m", moe_train),
                ("gemma3-1b on the (1, 1) mesh, first step", mesh),
                (f"zamba2-7b depth {ZAMBA_TRAIN_LAYERS}", zamba_train),
-               (WHISPER, whisper_train), ("internvl2-2b", vlm_train))
+               (WHISPER, whisper_train), ("internvl2-2b", vlm_train),
+               ("the ~100M gemma3-family trainer, hd 80", trainer))
     bwd_launches = {a: t["launches"]["flash_attention_bwd"]
                     for a, t in trained}
     summary.append({
@@ -4280,6 +4799,8 @@ def main() -> int:
         "training_whisper": {k: v for k, v in whisper_train.items()
                              if k != "launches"},
         "training_internvl2": {k: v for k, v in vlm_train.items()
+                               if k != "launches"},
+        "training_100m_hd80": {k: v for k, v in trainer.items()
                                if k != "launches"},
         "float32": [{k: r[k] for k in
                      ("shape", "max_abs_err", "errors", "tolerances", "ms",
@@ -4335,6 +4856,7 @@ def main() -> int:
                 a: t["launches"]["flash_attention"] for a, t in trained}
             entry["arctic"] = arctic
             entry["whisper"] = whisper
+            entry["serve_grid"] = served_grid
         if entry["name"] == "selective_scan":
             entry["launches_training"] = \
                 mamba_train["launches"]["selective_scan"]

@@ -129,15 +129,17 @@ struct BwdParams {
 };
 
 // The per-head-dim shape of both kernels. A head dim above 64 that is not
-// a multiple of the 64-column swizzle span (zamba2-7b's 112) is laid out in
-// shared memory as the next multiple, kPD (128): the tensor maps keep the
-// true extent HD, so TMA fills columns HD..kPD-1 of each tile's last atom
-// with zeros. The products that reduce over hd (S, dP) run HD / 16 k-steps
+// a multiple of the 64-column swizzle span (zamba2-7b's 112, the ~100M
+// gemma3-family trainer's 80) is laid out in shared memory as the next
+// multiple, kPD (128): the tensor maps keep the true extent HD, so TMA
+// fills columns HD..kPD-1 of each tile's last atom with zeros. The products that reduce over hd (S, dP) run HD / 16 k-steps
 // and never read those columns; the products whose N is hd (dV, dK, dQ)
 // run at kPD, where the zero columns of dO, Q and K give output columns
 // that are never stored (dK, dV sum and store HD columns, dQ stores HD).
 // So hd 112 runs the hd-128 shape: 128 / 112 = 1.14 times the tensor work
-// of those three products, 1.09 times that of all five.
+// of those three products, 1.09 times that of all five; hd 80 runs it too,
+// at 128 / 80 = 1.6 times the work of those three, 1.36 times that of all
+// five (S and dP run 5 k-steps at 80).
 template <int HD>
 struct Cfg {
   static constexpr int kPD = HD <= 64 ? HD : (HD + 63) / 64 * 64;
@@ -284,8 +286,8 @@ struct Consts {
 };
 
 // Lanes of delta_kernel a row: HD / 8 16-byte chunks rounded up to a power
-// of two (the shuffle tree's width; 16 at hd 112, two lanes idle), at most
-// 32.
+// of two (the shuffle tree's width; 16 at hd 112, two lanes idle; 16 at
+// hd 80, six idle), at most 32.
 template <int HD>
 __host__ __device__ constexpr int delta_lanes() {
   int n = 1;
@@ -1146,8 +1148,12 @@ __global__ void __launch_bounds__(kF32Threads)
 
 // dQ of one 32-query tile of one head: the key tiles it sees in ascending
 // order, each tile's keys in ascending order; eight threads a query row.
+// At hd 80 ptxas, left to itself, holds the kernel to 64 registers and
+// spills; asking for two blocks an SM (at most 128 registers) lets it keep
+// everything in registers. A minimum of 0 leaves every other head dim as
+// it was compiled before.
 template <int HD>
-__global__ void __launch_bounds__(kF32Threads)
+__global__ void __launch_bounds__(kF32Threads, HD == 80 ? 2 : 0)
     dq_f32_kernel(const F32Params p) {
   constexpr int P = HD + 1;
   constexpr int kDims = HD / 8;
@@ -1301,6 +1307,7 @@ extern "C" int flash_attention_bwd(
     case 16: return launch_bwd<16>(p, q, k, v, strides, st);
     case 32: return launch_bwd<32>(p, q, k, v, strides, st);
     case 64: return launch_bwd<64>(p, q, k, v, strides, st);
+    case 80: return launch_bwd<80>(p, q, k, v, strides, st);
     case 112: return launch_bwd<112>(p, q, k, v, strides, st);
     case 128: return launch_bwd<128>(p, q, k, v, strides, st);
     case 256: return launch_bwd<256>(p, q, k, v, strides, st);
@@ -1362,6 +1369,7 @@ extern "C" int flash_attention_bwd_f32(
     case 16: return launch_bwd_f32<16>(p, st);
     case 32: return launch_bwd_f32<32>(p, st);
     case 64: return launch_bwd_f32<64>(p, st);
+    case 80: return launch_bwd_f32<80>(p, st);
     case 112: return launch_bwd_f32<112>(p, st);
     case 128: return launch_bwd_f32<128>(p, st);
     case 256: return launch_bwd_f32<256>(p, st);

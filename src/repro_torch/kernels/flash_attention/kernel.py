@@ -19,8 +19,9 @@ from .ref import key_range
 from .work import attention_work
 
 #: head dims the kernel is compiled for (those of the repo's configs/tests;
-#: 112 is zamba2-7b's shared attention block)
-HEAD_DIMS = (16, 32, 64, 112, 128, 256)
+#: 80 is the ~100M gemma3-family trainer's, 112 zamba2-7b's shared
+#: attention block)
+HEAD_DIMS = (16, 32, 64, 80, 112, 128, 256)
 #: the routes, by the id the C entry point takes
 ROUTES = ("simt", "mma", "decode")
 #: (head, query) rows of a KV group up to which a call is a decode

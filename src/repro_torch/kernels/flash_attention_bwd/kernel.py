@@ -6,8 +6,8 @@ inputs; for float32 inputs the same three steps on the CUDA cores
 (``flash_attention_bwd_f32``: dK/dV per (batch, KV head, 32-key tile), its
 G heads summed in a loop, dQ per (batch, head, 32-query tile)), with no
 plan and no tile table. A head dim above 64 that is not a multiple of 64
-(112) runs the next multiple's shape in shared memory (the source's
-``Cfg::kPD``): two consumer warpgroups at 112 as at 128.
+(80, 112) runs the next multiple's shape in shared memory (the source's
+``Cfg::kPD``): two consumer warpgroups at 80 and 112 as at 128.
 
 :func:`plan_bwd` settles every launch from the shapes alone, the tile walk
 included: for each launch position, the key tile of a dK/dV block with the

@@ -77,11 +77,13 @@ def family_batch(cfg, batch: dict, *, device: "str | torch.device",
 
 def build(cfg, *, batch: int, seq: int, steps: int, microbatches: int = 1,
           compress_grads: bool = False, device: "str | torch.device" = "cuda",
-          seed: int = 0) -> dict:
-    """The launcher's pieces: the grid and its loader, seeded parameters
-    and optimizer state on ``device``, and the train step. Raises for a
-    config the port does not train (:func:`check_trainable`) and for a
-    ``seq`` its family cannot take (:func:`check_seq`)."""
+          seed: int = 0, n_shards: int = 16, warmup_steps: int = 10) -> dict:
+    """The launcher's pieces: the grid (HRS, data-aware) and its loader
+    over ``n_shards`` shards, seeded parameters and optimizer state on
+    ``device``, and the train step (AdamW at 3e-4 after ``warmup_steps``,
+    cosine to ``steps``). Raises for a config the port does not train
+    (:func:`check_trainable`) and for a ``seq`` its family cannot take
+    (:func:`check_seq`)."""
     check_trainable(cfg)
     check_seq(cfg, seq)
     dev = resolve_device(device)
@@ -89,10 +91,11 @@ def build(cfg, *, batch: int, seq: int, steps: int, microbatches: int = 1,
                         storage_capacity=256e9)
     grid = DataGridService(topo)
     ds = SyntheticShardedDataset(DataConfig(
-        vocab=cfg.vocab, seq_len=seq, global_batch=batch, n_shards=16))
+        vocab=cfg.vocab, seq_len=seq, global_batch=batch, n_shards=n_shards))
     tcfg = TrainConfig(
         n_microbatches=microbatches,
-        opt=OptimizerConfig(peak_lr=3e-4, warmup_steps=10, total_steps=steps,
+        opt=OptimizerConfig(peak_lr=3e-4, warmup_steps=warmup_steps,
+                            total_steps=steps,
                             compress_grads=compress_grads))
     params, opt = init_train_state(cfg, seed=seed, device=dev,
                                    compress_grads=compress_grads)
@@ -106,7 +109,8 @@ def make_step_fn(train_step, next_batch, device: torch.device, *, cfg=None,
     """The supervisor's ``step_fn(state, i)``: ``next_batch()`` gives a
     numpy batch (``GridDataLoader.next_batch``), made ``cfg``'s family
     batch on ``device`` (:func:`family_batch`, with ``embeds``); without
-    ``cfg`` the batch is moved as it is."""
+    ``cfg`` the batch is moved as it is. The step reports the train
+    step's metrics as they are (``loss``, ``grad_norm``, ``lr``, ...)."""
 
     def step_fn(state, i):
         p, o = state
@@ -115,7 +119,7 @@ def make_step_fn(train_step, next_batch, device: torch.device, *, cfg=None,
              if cfg is not None else
              {k: torch.as_tensor(v, device=device) for k, v in batch.items()})
         p, o, m = train_step(p, o, b)
-        return (p, o), {"loss": m["loss"]}
+        return (p, o), m
 
     return step_fn
 

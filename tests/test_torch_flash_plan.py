@@ -153,6 +153,45 @@ def test_plan_constants_match_the_kernel_source():
         assert re.search(rf"case {i}:", src), route
 
 
+@pytest.mark.parametrize("window", [None, 256])
+def test_trainer_hd80_routes(window):
+    """The ~100M gemma3-family trainer's head dim 80 takes every route: its
+    training calls (B 4, H 8 on KV 2, S 256) the tensor-core prefill in
+    bf16 and the SIMT prefill in float32, one query against 257 slots (G 4
+    x Sq 1 rows) the split decode; the wrapper's check passes 80 (a CPU
+    tensor then raises for want of a card) and still rejects 48."""
+    assert 80 in K.HEAD_DIMS
+    for dtype, route in ((torch.bfloat16, "mma"), (torch.float32, "simt")):
+        plan = plan_launch(4, 8, 2, 256, 256, causal=True, window=window,
+                           q_offset=0, dtype=dtype)
+        assert plan.route == route
+        dec = plan_launch(4, 8, 2, 1, 257, causal=True, window=window,
+                          q_offset=256, dtype=dtype)
+        assert dec.route == "decode"
+        assert (dec.key_lo, dec.key_hi) == ((0 if window is None else 1),
+                                            257)
+    q, k, v = (torch.tensor(a) for a in _qkv(8, 1, 8, 2, 4, 4, 80))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        K.flash_attention_kernel(q, k, v)
+    q, k, v = (torch.tensor(a) for a in _qkv(8, 1, 8, 2, 4, 4, 48))
+    with pytest.raises(ValueError, match="head dim 48"):
+        K.flash_attention_kernel(q, k, v)
+
+
+@pytest.mark.parametrize("name,switches", [("flash_attention", 3),
+                                           ("flash_attention_bwd", 2)])
+def test_every_route_is_built_at_every_head_dim(name, switches):
+    """Each dispatch of the C source (the forward's decode, tensor-core
+    and SIMT routes; the backward's bf16 and float32 routes) has a case
+    for each of ``HEAD_DIMS`` and no other, so a head dim the wrapper
+    passes is instantiated on every route."""
+    src = (_cuda.CSRC / f"{name}.cu").read_text()
+    cases = re.findall(r"case (\d+): return launch_\w+<(?:T, )?(\d+)>", src)
+    assert all(a == b for a, b in cases)
+    dims = [int(a) for a, _ in cases]
+    assert sorted(dims) == sorted(K.HEAD_DIMS * switches)
+
+
 SPLIT_REF_CASES = [
     # B, H, KV, Sq, Skv, hd, causal, window, softcap, q_offset, kv_len
     (4, 4, 1, 1, 1040, 64, True, None, None, 1039, 1040),
